@@ -1,0 +1,86 @@
+"""Per-node batching from a dataset staged on the device once.
+
+Every local step sees a uniform (N, B, ...) batch: each node samples with
+replacement from its own pool (its rows of the shared dataset), and the
+number of local steps per round is one pass of the *median* node's data, as
+in the reference's ``NodeLoader``.
+
+The dataset lives on the device as an image bank ``x`` (T, D), labels ``y``
+(T,), the zero-padded per-node pools ``parts`` (N, M) and their true
+``sizes`` (N,), so batches are gathered on the card. (The reference's
+host-side ``sample_round`` builds a (steps, N, B, 784) array on the host
+every round.)
+
+Batch indices are a pure function of ``(seed, round)``: each round seeds a
+``torch.Generator`` on the loader's device from the pair. The draws differ
+from the reference's JAX threefry bits; ``index_fn`` lets a caller supply the
+pool positions instead (the parity tests inject the reference's
+``round_batch_indices`` through it).
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+import torch
+
+__all__ = ["NodeLoader"]
+
+# index_fn(round, steps) -> (steps, N, B) pool positions, each in [0, sizes[n]).
+IndexFn = Callable[[int, int], np.ndarray]
+
+
+class NodeLoader:
+    def __init__(
+        self,
+        x: np.ndarray,
+        y: np.ndarray,
+        parts: list[np.ndarray],
+        *,
+        batch_size: int,
+        seed: int = 0,
+        device: str | torch.device,
+        index_fn: IndexFn | None = None,
+    ):
+        self.device = torch.device(device)
+        self.batch = batch_size
+        self.seed = seed
+        self.index_fn = index_fn
+        self.num_nodes = len(parts)
+        self.sizes = np.array([len(p) for p in parts], dtype=np.int64)
+        empty = np.flatnonzero(self.sizes == 0)
+        if empty.size:
+            raise ValueError(f"node {int(empty[0])} has an empty dataset")
+        pools = np.zeros((self.num_nodes, int(self.sizes.max())), dtype=np.int64)
+        for n, p in enumerate(parts):
+            pools[n, : len(p)] = p
+        self.x = torch.as_tensor(np.ascontiguousarray(x), device=self.device)
+        self.y = torch.as_tensor(np.asarray(y, dtype=np.int64), device=self.device)
+        self.parts = torch.as_tensor(pools, device=self.device)
+        self._sizes = torch.as_tensor(self.sizes, device=self.device)
+
+    def steps_per_epoch(self) -> int:
+        """Uniform local steps per round: one pass of the *median* node."""
+        return max(1, int(np.median(self.sizes)) // self.batch)
+
+    def round_indices(self, round: int, steps: int) -> torch.Tensor:
+        """(steps, N, B) with-replacement pool positions for one round."""
+        if self.index_fn is not None:
+            idx = torch.as_tensor(np.array(self.index_fn(round, steps)), device=self.device)
+            return idx.long()
+        seed = int(np.random.SeedSequence([self.seed, round]).generate_state(1, np.uint64)[0])
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        raw = torch.randint(
+            0, 2**31 - 1, (steps, self.num_nodes, self.batch),
+            generator=gen, device=self.device,
+        )
+        return raw % self._sizes[None, :, None]
+
+    def batches(self, round: int, steps: int):
+        """Yield ``steps`` (x (N, B, ...), y (N, B)) batches of one round."""
+        idx = self.round_indices(round, steps)
+        for s in range(steps):
+            rows = torch.gather(self.parts, 1, idx[s])  # (N, B) dataset rows
+            yield self.x[rows], self.y[rows]

@@ -1,0 +1,296 @@
+"""Executes ExperimentSpecs and streams per-round records to a ResultsStore.
+
+The port's counterpart of ``repro.experiments.runner`` for the paper's
+``mlp`` executor: synthetic MNIST-like data, graph-aware partitioners and
+``DecentralizedTrainer``. It streams the reference's records per round
+(per-node accuracy stats, G1/G2 class-group accuracy on all, focus and
+spread nodes, consensus distance, wall-clock) and the same ``run_end``
+summary, plus ``framework`` and ``device``. It runs the per-round loop
+(``"fused": false``): ``run_fused`` is not ported yet.
+
+Not ported yet, and rejected with ``NotImplementedError``: specs with
+``faults`` (slice C), the ``lm`` executor (slice E) and ``processes > 1``.
+
+``run_sweep`` skips specs whose run_id already has a completed ``run_end``
+in the store. ``run_id`` is the reference's content hash, so keep the two
+packages' stores apart (the sweep CLI's default store names do).
+"""
+
+from __future__ import annotations
+
+import time
+import traceback
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from repro_torch.device import device_name, resolve_device
+from repro_torch.experiments.spec import ExperimentSpec
+from repro_torch.experiments.store import ResultsStore
+
+__all__ = ["run_spec", "run_sweep", "build_partition", "default_class_groups"]
+
+Emit = Callable[[dict[str, Any]], None]
+
+
+def default_class_groups(num_classes: int) -> np.ndarray:
+    """Paper split: lower half of the classes is G1 (everyone), upper half G2."""
+    g = np.zeros(num_classes, dtype=np.int32)
+    g[num_classes // 2 :] = 1
+    return g
+
+
+def build_partition(spec: ExperimentSpec, g, labels: np.ndarray) -> list[np.ndarray]:
+    """Dispatch spec.partitioner over core/partition.py with the realized graph."""
+    from repro_torch.core import partition as P
+
+    kw = dict(spec.partitioner_params)
+    n = g.num_nodes
+    if spec.partitioner == "iid":
+        return P.iid(labels, n, seed=spec.seed, **kw)
+    if spec.partitioner == "hub_focused":
+        return P.hub_focused(labels, g, seed=spec.seed, **kw)
+    if spec.partitioner == "edge_focused":
+        return P.edge_focused(labels, g, seed=spec.seed, **kw)
+    if spec.partitioner == "community":
+        return P.community(labels, g, seed=spec.seed, **kw)
+    if spec.partitioner == "dirichlet":
+        kw.setdefault("beta", 0.5)
+        return P.dirichlet(labels, n, seed=spec.seed, **kw)
+    raise ValueError(f"unknown partitioner {spec.partitioner!r}")
+
+
+def _graph_record(g, w: np.ndarray) -> dict[str, Any]:
+    """graph_summary + spectral gap of the realized W (exact up to N=1024)."""
+    from repro_torch.core import mixing, topology
+
+    rec = topology.graph_summary(g)
+    rec["spectral_gap"] = mixing.spectral_gap(w) if g.num_nodes <= 1024 else None
+    return rec
+
+
+_MAX_GRAPH_PERIODS = 32
+
+
+def _graph_records(engine, rounds: int) -> dict[str, Any]:
+    """Graph summaries for every schedule period the run realized: ``graph``
+    (period 0), plus ``graph_periods`` and ``graph_mean`` for multi-period
+    runs, sampled evenly past ``_MAX_GRAPH_PERIODS`` periods (the reference's
+    rule and record layout)."""
+    first_round: dict[int, int] = {}
+    for r in range(max(int(rounds), 1)):
+        first_round.setdefault(engine.schedule.period_of(r), r)
+    periods = sorted(first_round)
+    num_periods = len(periods)
+    sampled = num_periods > _MAX_GRAPH_PERIODS
+    if sampled:
+        pick = np.linspace(0, num_periods - 1, _MAX_GRAPH_PERIODS).round()
+        periods = [periods[int(i)] for i in np.unique(pick)]
+    recs = []
+    for p in periods:
+        g = engine.graph_at(first_round[p])
+        rec = _graph_record(g, engine.w.cpu().numpy())
+        rec["period"] = p
+        recs.append(rec)
+    out: dict[str, Any] = {"graph": recs[0], "graph_num_periods": num_periods}
+    if len(recs) > 1:
+        out["graph_periods"] = recs
+        if sampled:
+            out["graph_periods_sampled"] = True
+        out["graph_mean"] = {
+            k: float(np.mean([r[k] for r in recs]))
+            for k, v in recs[0].items()
+            if k != "period"
+            and isinstance(v, (int, float)) and not isinstance(v, bool)
+            and all(isinstance(r.get(k), (int, float)) for r in recs)
+        }
+    return out
+
+
+def _run_mlp(spec: ExperimentSpec, emit: Emit, verbose: bool,
+             device: torch.device) -> dict[str, Any]:
+    from repro_torch.core import topology
+    from repro_torch.core.partition import partition_summary
+    from repro_torch.data.loader import NodeLoader
+    from repro_torch.data.synthetic import make_mnist_like
+    from repro_torch.train.trainer import DecentralizedTrainer
+
+    ds = make_mnist_like(**spec.data)
+    schedule = topology.make_schedule(spec.topology, seed=spec.seed)
+    parts = build_partition(spec, schedule.graph_at(0), ds.y_train)
+
+    num_classes = ds.num_classes
+    groups = default_class_groups(num_classes)
+    summ = partition_summary(ds.y_train, parts)
+    holds_g2 = summ[:, np.flatnonzero(groups == 1)].sum(axis=1) > 0
+    focus_nodes = np.flatnonzero(holds_g2)
+    spread_nodes = np.flatnonzero(~holds_g2)
+
+    loader = NodeLoader(
+        ds.x_train, ds.y_train, parts, batch_size=spec.batch_size,
+        seed=spec.seed + 1, device=device,
+    )
+    hidden = spec.model.get("hidden")
+    trainer = DecentralizedTrainer(
+        schedule,
+        loader,
+        lr=spec.lr,
+        momentum=spec.momentum,
+        local_epochs=spec.local_epochs,
+        mix_impl=spec.backend,
+        matrix=spec.matrix,
+        gossip_every=spec.gossip_every,
+        compress=spec.model.get("compress"),
+        same_init=spec.same_init,
+        seed=spec.seed,
+        in_dim=int(spec.model.get("in_dim", ds.x_train.shape[1])),
+        hidden=None if hidden is None else tuple(hidden),
+        num_classes=num_classes,
+        class_groups=groups,
+        device=device,
+    )
+    last: dict[str, Any] = {}
+
+    def on_round(m) -> None:
+        rec: dict[str, Any] = {
+            "round": m.round,
+            "mean_acc": m.mean_acc,
+            "std_acc": m.std_acc,
+            "min_acc": float(m.per_node_acc.min()),
+            "max_acc": float(m.per_node_acc.max()),
+            "g1_acc": float(m.group_acc[:, 0].mean()),
+            "g2_acc": float(m.group_acc[:, 1].mean()),
+            "g2_acc_focus": (
+                float(m.group_acc[focus_nodes, 1].mean()) if len(focus_nodes) else None
+            ),
+            "g2_acc_spread": (
+                float(m.group_acc[spread_nodes, 1].mean()) if len(spread_nodes) else None
+            ),
+            "consensus_mean": float(m.consensus.mean()),
+            "consensus_max": float(m.consensus.max()),
+            "wall_s": round(m.wall_s, 4),
+        }
+        last.clear()
+        last.update(rec)
+        emit(rec)
+        if verbose:
+            print(
+                f"    round {m.round:4d}  acc {m.mean_acc:.4f}  "
+                f"g2_spread {rec['g2_acc_spread']}  cons {rec['consensus_mean']:.3g}"
+            )
+
+    trainer.run(
+        spec.rounds, eval_every=spec.eval_every,
+        x_test=ds.x_test, y_test=ds.y_test, on_round=on_round,
+    )
+
+    final: dict[str, Any] = {
+        **last,
+        **_graph_records(trainer.engine, spec.rounds),
+        "num_focus_nodes": int(len(focus_nodes)),
+        "num_spread_nodes": int(len(spread_nodes)),
+        "backend": trainer.mix_impl,
+        "fused": trainer.supports_fused,
+        "framework": "torch",
+        "device": device_name(device),
+    }
+    # Community runs additionally record the paper's Table-1 confusion view.
+    if trainer.graph.blocks is not None and trainer.graph.num_nodes <= 256:
+        from repro_torch.train.metrics import community_confusion
+
+        cms = torch.as_tensor(trainer.confusion(ds.x_test, ds.y_test))
+        blocks = trainer.graph.blocks
+        num_comms = int(blocks.max()) + 1
+        comm_cm = community_confusion(cms, torch.as_tensor(blocks), num_comms).numpy()
+        off_diag = comm_cm.copy()
+        for b in range(num_comms):
+            np.fill_diagonal(off_diag[b], 0.0)
+        final["community_confusion_offdiag"] = [
+            float(off_diag[b].sum()) for b in range(num_comms)
+        ]
+        if comm_cm.size <= 1000:
+            final["community_confusion"] = comm_cm.round(4).tolist()
+    return final
+
+
+def _executor(spec: ExperimentSpec):
+    """The executor for ``spec``, or NotImplementedError for what the port
+    does not run yet."""
+    if spec.faults is not None:
+        raise NotImplementedError("faults: slice C")
+    kind = spec.model.get("kind", "mlp")
+    if kind != "mlp":
+        raise NotImplementedError(f"model kind {kind!r}: slice E")
+    return _run_mlp
+
+
+def run_spec(
+    spec: ExperimentSpec,
+    store: ResultsStore,
+    *,
+    verbose: bool = False,
+    raise_on_error: bool = True,
+    device: str | torch.device | None = None,
+) -> dict[str, Any]:
+    """Execute one spec on ``device`` (None means CUDA), streaming records to
+    ``store``. Returns the final summary (also written as the ``run_end``
+    record)."""
+    device = resolve_device(device)
+    rid = spec.run_id
+    store.run_start(rid, spec.to_json())
+    t0 = time.perf_counter()
+    try:
+        final = _executor(spec)(spec, lambda rec: store.round(rid, rec), verbose, device)
+    except Exception as e:  # noqa: BLE001 — sweep must survive one bad spec
+        store.run_end(rid, "failed", error=f"{type(e).__name__}: {e}")
+        if raise_on_error:
+            raise
+        if verbose:
+            traceback.print_exc()
+        return {"status": "failed", "run_id": rid, "error": str(e)}
+    store.run_end(rid, "completed", wall_s=round(time.perf_counter() - t0, 4),
+                  final=final)
+    return {"status": "completed", "run_id": rid, "final": final}
+
+
+def run_sweep(
+    specs: list[ExperimentSpec],
+    store_path: str,
+    *,
+    resume: bool = True,
+    processes: int = 1,
+    verbose: bool = False,
+    device: str | torch.device | None = None,
+) -> dict[str, Any]:
+    """Run a list of specs against one results store, one after another.
+
+    With ``resume`` (default), specs whose run_id already has a completed
+    run_end are skipped. ``processes > 1`` (the reference's process pool) is
+    not ported yet and raises.
+    """
+    if processes > 1:
+        raise NotImplementedError("run_sweep(processes > 1) is not ported yet")
+    device = resolve_device(device)
+    store = ResultsStore(store_path)
+    done = store.completed() if resume else set()
+    todo = [s for s in specs if s.run_id not in done]
+    skipped = len(specs) - len(todo)
+    if verbose and skipped:
+        print(f"resume: skipping {skipped} completed run(s)")
+    statuses = []
+    for i, spec in enumerate(todo):
+        if verbose:
+            print(f"[{i + 1}/{len(todo)}] {spec.run_id}  ({spec.topology} "
+                  f"x {spec.partitioner})")
+        statuses.append(
+            run_spec(spec, store, verbose=verbose, raise_on_error=False, device=device)
+        )
+    failed = [s["run_id"] for s in statuses if s["status"] != "completed"]
+    return {
+        "total": len(specs),
+        "ran": len(todo),
+        "skipped": skipped,
+        "failed": failed,
+        "store": store.path,
+    }

@@ -1,0 +1,9 @@
+"""Public wrappers around the port's kernels, as ``repro.kernels.ops`` is for
+the Pallas ones. The port's wrappers take unpadded tensors: the kernels mask
+ragged edges themselves."""
+
+from __future__ import annotations
+
+from repro_torch.kernels.gossip_mix import gossip_mix
+
+__all__ = ["gossip_mix"]

@@ -7,8 +7,9 @@ Phases, in order; any failure exits non-zero, and no phase catches and
 carries on:
 
 1. device   -- the card's name, and its name and power limit from nvidia-smi;
-2. build    -- compile the gossip_mix kernel from the repo's CUDA source;
-3. kernel   -- the kernel against its plain PyTorch version on the card, at
+2. build    -- compile every CUDA source of the port (gossip_mix.cu and
+               sparse_gossip.cu), one nvcc each, started together;
+3. kernel   -- the gossip_mix kernel against its plain version on the card, at
                the main path's 8 leaf shapes, a ragged shape, (1, 1) and an
                N=300 ring (whole zero W tiles), in f32 (3e-5) and bf16 (2e-2),
                with tile skipping on and off;
@@ -21,7 +22,24 @@ carries on:
                8 times per gossip round, and the run agrees with the dense
                backend;
 6. checks   -- the port's smoke preset and its qualitative checks (printed,
-               not asserted: the port's RNG differs from JAX's).
+               not asserted: the port's RNG differs from JAX's);
+7. sparse   -- both sparse kernels against their plain versions, in f32
+               (3e-5) and bf16 (2e-2): the three large_n layouts (ws, torus,
+               caveman at N=1024) at the 4 leaf widths of the 784-64-10
+               MLP, a ragged N=1001, D=1, and a period stack from
+               stack_block_ell with unequal tile counts;
+8. stimes   -- CUDA-event times of one large_n gossip round (4 leaves) for
+               each sparse kernel, its plain version and torch.sparse.mm on
+               a CSR W, beside the least time the card could take;
+9. large_n  -- the large_n preset's three N=1024 hub_focused runs through
+               run_spec on backend sparse_pallas: fused, the blocked kernel
+               launched 4 times per gossip round, records finite; the same
+               runs on backend sparse agree (per node within 3 of 1000 test
+               examples, consensus 1e-3 relative); sparse loop and fused
+               runs are bit-identical; dense loop and fused runs of the
+               paper's N=100 run agree within 1e-6; and one gossip round of
+               each layout through mix_sparse_pallas(blocked=False) (the row
+               gather kernel) agrees with mix_sparse.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA card, or without
@@ -30,12 +48,14 @@ the repo beside it, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -52,6 +72,12 @@ MAIN_SPEC = dict(
     batch_size=32, lr=0.05, momentum=0.9,
 )
 TOL = {torch.float32: 3e-5, torch.bfloat16: 2e-2}
+# The large_n preset: N=1024 graphs and the 784-64-10 MLP, whose flattened
+# leaves (trainer order: b, w of each layer) have these widths.
+LARGE_N_TOPOLOGIES = ("ws:n=1024,k=8,beta=0.1", "torus:rows=32,cols=32",
+                      "caveman:cliques=128,size=8")
+LARGE_N_DIMS = (784, 64, 10)
+LARGE_N_LEAF_D = tuple(d for a, b in zip(LARGE_N_DIMS[:-1], LARGE_N_DIMS[1:]) for d in (b, a * b))
 
 
 def phase(name: str, msg: str) -> None:
@@ -119,6 +145,7 @@ def main() -> int:
     from repro_torch.experiments.store import ResultsStore
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.kernels import gossip_mix as gm
+    from repro_torch.kernels import sparse_gossip as sg
     from repro_torch.train.trainer import DecentralizedTrainer
 
     dev = torch.device("cuda")
@@ -132,11 +159,14 @@ def main() -> int:
     phase("device", f"torch: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     print(smi, flush=True)
 
-    # 2. build
+    # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    lib = gm.build()
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        libs = [f.result() for f in [pool.submit(gm.build), pool.submit(sg.build)]]
     gm._library()
-    phase("build", f"{lib.name} built and loaded in {time.perf_counter() - t0:.2f} s")
+    sg.load()
+    phase("build", f"{', '.join(lib.name for lib in libs)} built and loaded in "
+                   f"{time.perf_counter() - t0:.2f} s")
 
     # 3. kernel against plain, on the card
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -271,28 +301,281 @@ def main() -> int:
         path = str(Path(tmp) / "smoke.jsonl")
         summary = runner.run_sweep(presets.get_preset("smoke"), path)
         if summary["failed"]:
-            fail(f"smoke preset runs failed: {summary['failed']}")
+            errors = [r for r in ResultsStore(path).records()
+                      if r.get("kind") == "run_end" and r.get("status") != "completed"]
+            fail(f"smoke preset runs failed: {errors}")
         checks = analysis.qualitative_checks(analysis.summarize(ResultsStore(path)))
         phase("checks", "smoke preset (seed 0): " + json.dumps(
             {k: checks.get(k) for k in ("hub_beats_edge", "hub_beats_edge_by_family",
                                         "gossip_learns_g2")}))
 
-    print(json.dumps({"kernels": [{
-        "name": "gossip_mix",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/gossip_mix.cu",
-        "replaces": "src/repro/kernels/gossip_mix.py:106",
-        "launches": launches["gossip_mix"],
-        "max_abs_err": main_err,
-        "ms": t_kernel,
-        "plain_ms": t_plain,
-        "bound_ms": bound,
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": t_lib,
-    }]}))
+    # 7-9. slice B: the sparse kernels and the large-N path
+    sparse_err = sparse_kernel_checks(dev, gen)
+    sparse_times = sparse_round_times(dev, gen)
+    large_n_launches = large_n_main_path(dev, kind)
+
+    def entry(name, source, replaces, t, err):
+        return {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": large_n_launches[name] if name != "gossip_mix" else launches[name],
+            "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        }
+
+    print(json.dumps({"kernels": [
+        entry("gossip_mix", "src/repro_torch/kernels/csrc/gossip_mix.cu",
+              "src/repro/kernels/gossip_mix.py:106",
+              {"ms": t_kernel, "plain_ms": t_plain, "bound_ms": bound,
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": t_lib},
+              main_err),
+        entry("sparse_gossip_blocked", "src/repro_torch/kernels/csrc/sparse_gossip.cu",
+              "src/repro/kernels/sparse_gossip.py:129", sparse_times["sparse_gossip_blocked"],
+              sparse_err["sparse_gossip_blocked"]),
+        entry("sparse_gossip", "src/repro_torch/kernels/csrc/sparse_gossip.cu",
+              "src/repro/kernels/sparse_gossip.py:196", sparse_times["sparse_gossip"],
+              sparse_err["sparse_gossip"]),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
+
+
+def sparse_layouts(spec: str, dev) -> tuple[dict, object]:
+    """Both kernels' layouts of a topology's decavg W (uniform data sizes),
+    as (wrapper, plain version, idx, val) per kernel, and the CSR."""
+    from repro_torch.core import sparse, topology
+    from repro_torch.kernels import sparse_gossip as sg
+
+    csr = sparse.csr_from_graph(topology.make(spec, seed=0))
+    idx, val = sparse.ell_from_csr(csr)
+    bell = sparse.block_ell_from_csr(csr)
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    return {
+        "sparse_gossip_blocked": (sg.gossip_mix_sparse_blocked, sg.sparse_gossip_blocked_ref,
+                                  t(bell.idx), t(bell.val)),
+        "sparse_gossip": (sg.gossip_mix_sparse, sg.sparse_gossip_ref, t(idx), t(val)),
+    }, csr
+
+
+def sparse_kernel_checks(dev, gen) -> dict[str, float]:
+    """Phase 7: each sparse kernel against its plain version; returns each
+    kernel's largest f32 error at the large_n shapes."""
+    from repro_torch.core import sparse, topology
+    from repro_torch.kernels import sparse_gossip as sg
+
+    cases = [(spec, d) for spec in LARGE_N_TOPOLOGIES for d in LARGE_N_LEAF_D]
+    cases += [("ring:n=1001", 513), ("ring:n=1001", 1), ("ws:n=1024,k=8,beta=0.1", 1)]
+    errs = {"sparse_gossip_blocked": 0.0, "sparse_gossip": 0.0}
+    layouts = {}
+    for spec, d in cases:
+        if spec not in layouts:
+            layouts[spec] = sparse_layouts(spec, dev)
+        kernels, csr = layouts[spec]
+        n = csr.shape[0]
+        for dtype in (torch.float32, torch.bfloat16):
+            p = (torch.rand(n, d, generator=gen, device=dev) * 2 - 1).to(dtype)
+            for name, (fn, ref, idx, val) in kernels.items():
+                got = fn(idx, val, p)
+                torch.cuda.synchronize()
+                if got.dtype != dtype or got.shape != p.shape:
+                    fail(f"{name} {spec} D={d}: got {got.dtype} {tuple(got.shape)}")
+                err = float((got.float() - ref(idx, val, p).float()).abs().max())
+                if not err <= TOL[dtype]:
+                    fail(f"{name} {spec} D={d} {dtype}: max_abs_err {err} > {TOL[dtype]}")
+                if spec in LARGE_N_TOPOLOGIES and dtype == torch.float32:
+                    errs[name] = max(errs[name], err)
+        phase("sparse", f"{spec:28s} D={d:6d}: both kernels within tolerance, f32 and bf16")
+    # A period stack (@rewire: three periods with unequal tile counts): each
+    # period's slice, extra all-zero tiles included, against the plain version.
+    sched = topology.make_schedule("ws:n=1024,k=8,beta=0.3@rewire=1", seed=0)
+    csrs = [sparse.csr_from_graph(sched.graph_at(r)) for r in range(3)]
+    kbs = [sparse.block_ell_from_csr(c).max_blocks_per_row for c in csrs]
+    idx_st, val_st = (torch.as_tensor(a, device=dev) for a in sparse.stack_block_ell(csrs))
+    p = torch.rand(1024, 640, generator=gen, device=dev)
+    for t in range(3):
+        got = sg.gossip_mix_sparse_blocked(idx_st[t], val_st[t], p)
+        err = float((got - sg.sparse_gossip_blocked_ref(idx_st[t], val_st[t], p)).abs().max())
+        if not err <= TOL[torch.float32]:
+            fail(f"stacked period {t}: max_abs_err {err}")
+    phase("sparse", f"period stack of 3 (own KB {kbs}, stacked {idx_st.shape[2]}): "
+                    "blocked kernel within 3e-5 on every period")
+    return errs
+
+
+def sparse_round_times(dev, gen) -> dict[str, dict]:
+    """Phase 8: one large_n gossip round (4 leaves, f32) per layout; the ws
+    round (the widest rows) is the one the kernels line reports."""
+    from repro_torch.core import sparse
+
+    out = {}
+    d_total = sum(LARGE_N_LEAF_D)
+    for spec in LARGE_N_TOPOLOGIES:
+        kernels, csr = sparse_layouts(spec, dev)
+        n = csr.shape[0]
+        leaves = [torch.rand(n, d, generator=gen, device=dev) * 2 - 1 for d in LARGE_N_LEAF_D]
+        w_csr = torch.as_tensor(sparse.csr_to_dense(csr)).to_sparse_csr().to(dev)
+        t_lib = time_ms(lambda: [torch.sparse.mm(w_csr, p) for p in leaves])
+        for name, (fn, ref, idx, val) in kernels.items():
+            t_k = time_ms(lambda: [fn(idx, val, p) for p in leaves])
+            t_p = time_ms(lambda: [ref(idx, val, p) for p in leaves], reps=5, warmup=1)
+            # Each input read once (P, and the layout once a leaf), each output
+            # written once; the multiply-adds this W needs: 2 per entry per column.
+            layout_bytes = idx.numel() * idx.element_size() + val.numel() * val.element_size()
+            nbytes = 4 * 2 * n * d_total + len(LARGE_N_LEAF_D) * layout_bytes
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = 2 * csr.nnz * d_total / F32_FLOP_PER_S * 1e3
+            times = {"ms": t_k, "plain_ms": t_p, "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                     "library_ms": t_lib}
+            phase("stimes", f"{spec:28s} {name:22s} round: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+                            f"torch.sparse.mm {t_lib:.4f} ms, bound {times['bound_ms']:.4f} ms "
+                            f"(bytes {t_bytes:.4f}, nnz={csr.nnz} ops {t_ops:.4f})")
+            if spec == LARGE_N_TOPOLOGIES[0]:
+                out[name] = times
+    return out
+
+
+def large_n_trainer(spec, dev):
+    """The runner's trainer for ``spec``, built the same way, with its test set."""
+    from repro_torch.core import topology
+    from repro_torch.data.loader import NodeLoader
+    from repro_torch.data.synthetic import make_mnist_like
+    from repro_torch.experiments import runner
+    from repro_torch.train.trainer import DecentralizedTrainer
+
+    ds = make_mnist_like(**spec.data)
+    sched = topology.make_schedule(spec.topology, seed=spec.seed)
+    parts = runner.build_partition(spec, sched.graph_at(0), ds.y_train)
+    loader = NodeLoader(ds.x_train, ds.y_train, parts, batch_size=spec.batch_size,
+                        seed=spec.seed + 1, device=dev)
+    tr = DecentralizedTrainer(
+        sched, loader, lr=spec.lr, momentum=spec.momentum, mix_impl=spec.backend,
+        sparse_p_chunk=spec.model.get("sparse_p_chunk"), seed=spec.seed,
+        in_dim=ds.x_train.shape[1], hidden=spec.model.get("hidden"), num_classes=ds.num_classes,
+        class_groups=runner.default_class_groups(ds.num_classes), device=dev,
+    )
+    return tr, ds
+
+
+def large_n_main_path(dev, kind: str) -> dict[str, int]:
+    """Phase 9; returns each sparse kernel's launches on its path."""
+    from repro_torch.core import sparse
+    from repro_torch.experiments import presets, runner
+    from repro_torch.experiments.store import ResultsStore
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.tree import tree_leaves
+
+    specs = [dataclasses.replace(s, backend="sparse_pallas")
+             for s in presets.get_preset("large_n")
+             if s.partitioner == "hub_focused" and s.topology in LARGE_N_TOPOLOGIES]
+    if len(specs) != 3:
+        fail(f"large_n preset has {len(specs)} hub_focused N=1024 runs, want 3")
+    launches = {"sparse_gossip_blocked": 0, "sparse_gossip": 0}
+    acc_tol, cons_rtol = 3e-3, 1e-3
+    with tempfile.TemporaryDirectory() as tmp:
+        store = ResultsStore(str(Path(tmp) / "large_n.jsonl"))
+        for spec in specs:
+            reset_launches()
+            t0 = time.perf_counter()
+            out = runner.run_spec(spec, store, raise_on_error=True)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = dict(LAUNCHES)
+            final = out["final"]
+            records = store.curves(spec.run_id)
+            want = len(LARGE_N_LEAF_D) * spec.rounds  # gossip_every = 1
+            if got["sparse_gossip_blocked"] != want or final["fused"] is not True:
+                fail(f"{spec.topology}: fused={final['fused']}, sparse_gossip_blocked launched "
+                     f"{got['sparse_gossip_blocked']} times, want fused and {want}")
+            if [r["round"] for r in records] != list(range(spec.rounds)):
+                fail(f"{spec.topology}: records for rounds {[r['round'] for r in records]}")
+            for r in records:
+                for key in ("mean_acc", "min_acc", "g2_acc_spread", "consensus_mean"):
+                    if not math.isfinite(r[key]):
+                        fail(f"{spec.topology} round {r['round']}: {key} = {r[key]}")
+            if final["device"] != kind or final["backend"] != "sparse_pallas":
+                fail(f"run_end.final says {final['backend']} on {final['device']}")
+            launches["sparse_gossip_blocked"] += got["sparse_gossip_blocked"]
+            phase("large_n", f"{spec.run_id}: fused, {len(records)} records, final mean_acc "
+                             f"{final['mean_acc']:.4f}, g2_acc_spread {final['g2_acc_spread']:.4f}, "
+                             f"consensus_mean {final['consensus_mean']:.4g}; sparse_gossip_blocked "
+                             f"launches {got['sparse_gossip_blocked']} = 4 x {spec.rounds}; "
+                             f"{spec.rounds / wall:.3f} rounds/s ({wall:.2f} s, set-up included)")
+            # Same spec, backend sparse: the records and every node agree.
+            plain = dataclasses.replace(spec, backend="sparse")
+            runner.run_spec(plain, store, raise_on_error=True)
+            for a, b in zip(records, store.curves(plain.run_id)):
+                for key in ("mean_acc", "min_acc", "max_acc", "g2_acc_spread"):
+                    if abs(a[key] - b[key]) > acc_tol:
+                        fail(f"{spec.topology} round {a['round']} {key}: {a[key]} vs {b[key]}")
+                if abs(a["consensus_mean"] - b["consensus_mean"]) > cons_rtol * b["consensus_mean"]:
+                    fail(f"{spec.topology} round {a['round']} consensus differs")
+            last = {}
+            for s in (spec, plain):
+                tr, ds = large_n_trainer(s, dev)
+                last[s.backend] = tr.run_fused(s.rounds, eval_every=s.rounds,
+                                               x_test=ds.x_test, y_test=ds.y_test)[-1]
+            acc_diff = float(np.abs(last["sparse_pallas"].per_node_acc
+                                    - last["sparse"].per_node_acc).max())
+            cons_diff = float(np.max(np.abs(last["sparse_pallas"].consensus - last["sparse"].consensus)
+                                     / last["sparse"].consensus))
+            phase("large_n", f"{spec.topology}: sparse_pallas vs sparse per node: accuracy max diff "
+                             f"{acc_diff:.4f} (tol {acc_tol}), consensus max rel diff {cons_diff:.2e} "
+                             f"(tol {cons_rtol})")
+            if acc_diff > acc_tol or cons_diff > cons_rtol:
+                fail(f"{spec.topology}: sparse_pallas and sparse disagree per node")
+
+    # sparse: the per-round loop and the captured fused run, to the bit.
+    plain = dataclasses.replace(specs[0], backend="sparse")
+    runs = {}
+    for path in ("run", "run_fused"):
+        tr, ds = large_n_trainer(plain, dev)
+        getattr(tr, path)(plain.rounds, eval_every=plain.rounds, x_test=ds.x_test, y_test=ds.y_test)
+        runs[path] = tree_leaves(tr.params) + tree_leaves(tr.momentum)
+    same = all(torch.equal(a, b) for a, b in zip(runs["run"], runs["run_fused"]))
+    phase("large_n", f"{plain.topology} sparse: loop and fused bit-identical: {same}")
+    if not same:
+        fail("sparse loop and fused runs differ")
+
+    # dense at N=100 (the paper's run, full width): loop and fused within 1e-6.
+    from repro_torch.experiments.spec import ExperimentSpec
+
+    main = ExperimentSpec(**MAIN_SPEC, backend="dense")
+    runs = {}
+    for path in ("run", "run_fused"):
+        tr, ds = large_n_trainer(main, dev)
+        getattr(tr, path)(main.rounds, eval_every=main.rounds, x_test=ds.x_test, y_test=ds.y_test)
+        runs[path] = tree_leaves(tr.params)
+    diff = max(float((a - b).abs().max()) for a, b in zip(runs["run"], runs["run_fused"]))
+    phase("large_n", f"{main.topology} dense, {main.rounds} rounds: loop vs fused max abs diff "
+                     f"{diff:.3e} (tol 1e-6)")
+    if not diff <= 1e-6:
+        fail(f"dense loop and fused runs differ by {diff}")
+
+    # The row gather kernel: one gossip round of each layout through
+    # mix_sparse_pallas(blocked=False), against mix_sparse.
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for spec in LARGE_N_TOPOLOGIES:
+        _, csr = sparse_layouts(spec, dev)
+        n = csr.shape[0]
+        params = {"layers": [
+            {"b": torch.rand(n, b, generator=gen, device=dev),
+             "w": torch.rand(n, a, b, generator=gen, device=dev)}
+            for a, b in zip(LARGE_N_DIMS[:-1], LARGE_N_DIMS[1:])
+        ]}
+        want = sparse.mix_sparse(csr, params)
+        reset_launches()
+        got = sparse.mix_sparse_pallas(csr, params, blocked=False)
+        torch.cuda.synchronize()
+        launches["sparse_gossip"] += LAUNCHES["sparse_gossip"]
+        if LAUNCHES["sparse_gossip"] != len(LARGE_N_LEAF_D):
+            fail(f"{spec}: sparse_gossip launched {LAUNCHES['sparse_gossip']} times, want 4")
+        err = max(float((a - b).abs().max()) for a, b in zip(tree_leaves(got), tree_leaves(want)))
+        phase("large_n", f"{spec}: mix_sparse_pallas(blocked=False) vs mix_sparse max abs err "
+                         f"{err:.3e} (tol 3e-5), sparse_gossip launches 4")
+        if not err <= TOL[torch.float32]:
+            fail(f"{spec}: row gather kernel round differs from mix_sparse by {err}")
+    return launches
 
 
 if __name__ == "__main__":

@@ -16,6 +16,12 @@ Batch indices are a pure function of ``(seed, round)``: each round seeds a
 from the reference's JAX threefry bits; ``index_fn`` lets a caller supply the
 pool positions instead (the parity tests inject the reference's
 ``round_batch_indices`` through it).
+
+The per-round loop draws a round's indices as it goes (``batches``); the
+fused path draws a whole chunk's up front (``chunk_indices``), the same
+draws round by round, because a seeded generator cannot run inside a CUDA
+graph capture: the captured round reads them from a static buffer and
+gathers its batches with ``batch_at``, as ``batches`` does.
 """
 
 from __future__ import annotations
@@ -78,9 +84,17 @@ class NodeLoader:
         )
         return raw % self._sizes[None, :, None]
 
+    def chunk_indices(self, start: int, length: int, steps: int) -> torch.Tensor:
+        """(length, steps, N, B): ``round_indices`` of rounds start..start+length-1."""
+        return torch.stack([self.round_indices(r, steps) for r in range(start, start + length)])
+
+    def batch_at(self, idx: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """The (x (N, B, ...), y (N, B)) batch at pool positions ``idx`` (N, B)."""
+        rows = torch.gather(self.parts, 1, idx)  # (N, B) dataset rows
+        return self.x[rows], self.y[rows]
+
     def batches(self, round: int, steps: int):
         """Yield ``steps`` (x (N, B, ...), y (N, B)) batches of one round."""
         idx = self.round_indices(round, steps)
         for s in range(steps):
-            rows = torch.gather(self.parts, 1, idx[s])  # (N, B) dataset rows
-            yield self.x[rows], self.y[rows]
+            yield self.batch_at(idx[s])

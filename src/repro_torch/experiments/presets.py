@@ -4,9 +4,10 @@ package, so every spec keeps its run id).
 - ``smoke``: 3 topology families, hub/edge splits on BA, 1 seed, N=16.
 - ``paper``: the reproduction matrix (N=100; ER / BA / SBM x iid / hub /
   edge / community x 3 seeds).
-- ``large_n``, ``large_n_smoke``: the scaling runs on the sparse and
-  sparse_sharded backends — not ported yet (slices B and D); their runs fail
-  with NotImplementedError.
+- ``large_n``, ``large_n_smoke``: the scaling runs. Their single-device
+  runs (``large_n``'s six N=1024 runs and ``large_n_smoke``'s ``sparse``
+  run) take the sparse backend and ``run_fused``; the ``sparse_sharded``
+  runs fail with NotImplementedError until slice D ports that backend.
 - ``churn_smoke``: fault injection — not ported yet (slice C).
 - ``lm_smoke``: LLM cohorts — not ported yet (slice E).
 """

@@ -5,8 +5,10 @@ The port's counterpart of ``repro.experiments.runner`` for the paper's
 ``DecentralizedTrainer``. It streams the reference's records per round
 (per-node accuracy stats, G1/G2 class-group accuracy on all, focus and
 spread nodes, consensus distance, wall-clock) and the same ``run_end``
-summary, plus ``framework`` and ``device``. It runs the per-round loop
-(``"fused": false``): ``run_fused`` is not ported yet.
+summary, plus ``framework`` and ``device``. As in the reference, a run takes
+the trainer's ``run_fused`` when its backend supports it (dense, sparse,
+sparse_pallas) unless the spec says ``model={"fused": False}``, and
+``final.fused`` records the path it took.
 
 Not ported yet, and rejected with ``NotImplementedError``: specs with
 ``faults`` (slice C), the ``lm`` executor (slice E) and ``processes > 1``.
@@ -140,6 +142,7 @@ def _run_mlp(spec: ExperimentSpec, emit: Emit, verbose: bool,
         local_epochs=spec.local_epochs,
         mix_impl=spec.backend,
         matrix=spec.matrix,
+        sparse_p_chunk=spec.model.get("sparse_p_chunk"),
         gossip_every=spec.gossip_every,
         compress=spec.model.get("compress"),
         same_init=spec.same_init,
@@ -180,7 +183,9 @@ def _run_mlp(spec: ExperimentSpec, emit: Emit, verbose: bool,
                 f"g2_spread {rec['g2_acc_spread']}  cons {rec['consensus_mean']:.3g}"
             )
 
-    trainer.run(
+    use_fused = bool(spec.model.get("fused", True)) and trainer.supports_fused
+    run = trainer.run_fused if use_fused else trainer.run
+    run(
         spec.rounds, eval_every=spec.eval_every,
         x_test=ds.x_test, y_test=ds.y_test, on_round=on_round,
     )
@@ -191,7 +196,7 @@ def _run_mlp(spec: ExperimentSpec, emit: Emit, verbose: bool,
         "num_focus_nodes": int(len(focus_nodes)),
         "num_spread_nodes": int(len(spread_nodes)),
         "backend": trainer.mix_impl,
-        "fused": trainer.supports_fused,
+        "fused": use_fused,
         "framework": "torch",
         "device": device_name(device),
     }

@@ -14,25 +14,17 @@ refused launch raises, and nothing falls back.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import count_launch
+from repro_torch.kernels.nvcc import build_library, load_library
 
 __all__ = ["gossip_mix", "gossip_mix_ref", "build", "SOURCE"]
 
 SOURCE = Path(__file__).parent / "csrc" / "gossip_mix.cu"
 _BUILD_DIR = Path(__file__).parent / "build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-)
 
 _lib: ctypes.CDLL | None = None
 
@@ -42,57 +34,21 @@ def gossip_mix_ref(w: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     return (w.float() @ p.float()).to(p.dtype)
 
 
-def _nvcc() -> str:
-    for cand in (
-        shutil.which("nvcc"),
-        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
-    ):
-        if cand and os.path.isfile(cand):
-            return cand
-    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin): cannot build gossip_mix")
-
-
 def build() -> Path:
     """Compile ``csrc/gossip_mix.cu`` into a shared library (cached by source
     hash) and return its path. Raises if ``nvcc`` is missing or fails."""
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    out = _BUILD_DIR / f"libgossip_mix_{digest.hexdigest()[:16]}.so"
-    if out.exists():
-        return out
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # Build to a private name, then rename: a concurrent build never sees a
-    # half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    try:
-        res = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-            capture_output=True, text=True, check=False,
-        )
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return out
+    return build_library(SOURCE, _BUILD_DIR)
 
 
 def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name in ("gossip_mix_f32", "gossip_mix_bf16"):
-            fn = getattr(lib, name)
-            # c_void_p for pointers and the stream: without argtypes ctypes
-            # passes Python ints as 32-bit C ints and cuts the pointers.
-            fn.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-                ctypes.c_int, ctypes.c_void_p,
-            ]
-            fn.restype = ctypes.c_int
-        _lib = lib
+        args = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_int, ctypes.c_void_p,
+        ]
+        _lib = load_library(build(), {"gossip_mix_f32": args, "gossip_mix_bf16": args})
     return _lib
 
 
@@ -132,5 +88,5 @@ def gossip_mix(w: torch.Tensor, p: torch.Tensor, *, block_sparse: bool = True) -
             rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"gossip_mix launch failed: CUDA error {rc}")
-    LAUNCHES["gossip_mix"] += 1
+    count_launch("gossip_mix")
     return out

@@ -5,5 +5,6 @@ ragged edges themselves."""
 from __future__ import annotations
 
 from repro_torch.kernels.gossip_mix import gossip_mix
+from repro_torch.kernels.sparse_gossip import gossip_mix_sparse, gossip_mix_sparse_blocked
 
-__all__ = ["gossip_mix"]
+__all__ = ["gossip_mix", "gossip_mix_sparse", "gossip_mix_sparse_blocked"]

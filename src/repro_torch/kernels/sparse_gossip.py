@@ -1,0 +1,168 @@
+"""The sparse DecAvg mixing kernels: build, wrappers and plain versions.
+
+Replaces the two Pallas kernels of ``repro/kernels/sparse_gossip.py``:
+
+- ``gossip_mix_sparse_blocked`` (``sparse_gossip_blocked_pallas``): the
+  8-row-blocked ELL layout of ``core.sparse.block_ell_from_csr``;
+- ``gossip_mix_sparse`` (``sparse_gossip_pallas``): the scalar ELL row
+  gather of ``core.sparse.ell_from_csr``.
+
+Both kernels are CUDA C++ for ``sm_90a`` in ``csrc/sparse_gossip.cu`` (its
+header says what bounds them and how the design answers that), built with
+``nvcc`` at first use and bound with ``ctypes``. A wrapper takes the plain
+version only for tensors on the CPU; a CUDA tensor always launches the
+kernel, or the call raises. The kernels take P unpadded: they mask a ragged
+N and D themselves.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import count_launch
+from repro_torch.kernels.nvcc import build_library, load_library
+
+__all__ = [
+    "BLOCK_ROWS",
+    "SOURCE",
+    "build",
+    "load",
+    "gossip_mix_sparse",
+    "gossip_mix_sparse_blocked",
+    "sparse_gossip_ref",
+    "sparse_gossip_blocked_ref",
+]
+
+SOURCE = Path(__file__).parent / "csrc" / "sparse_gossip.cu"
+_BUILD_DIR = Path(__file__).parent / "build"
+BLOCK_ROWS = 8  # rows per block of the blocked layout (the reference's sublane count)
+
+_lib: ctypes.CDLL | None = None
+
+
+def sparse_gossip_ref(idx: torch.Tensor, val: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Plain scalar ELL: gather the K source rows of every row, then sum them
+    in f32, weighted; output in P's dtype."""
+    gathered = p.float()[idx.long()]  # (N, K, D)
+    return (val.float().unsqueeze(-1) * gathered).sum(dim=1).to(p.dtype)
+
+
+def sparse_gossip_blocked_ref(idx: torch.Tensor, val: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Plain blocked ELL: for each tile slot, gather every destination
+    block's source block and add its (8, 8) weight tile times it, in f32;
+    output in P's dtype."""
+    nb, kb = idx.shape
+    n, d = p.shape
+    pf = p.float()
+    if n < nb * BLOCK_ROWS:  # rows past N hold nothing, and weigh 0
+        pf = torch.cat([pf, pf.new_zeros(nb * BLOCK_ROWS - n, d)])
+    blocks = pf.reshape(nb, BLOCK_ROWS, d)
+    tiles = val.float().reshape(nb, BLOCK_ROWS, kb, BLOCK_ROWS)
+    out = pf.new_zeros(nb, BLOCK_ROWS, d)
+    for s in range(kb):
+        out += torch.bmm(tiles[:, :, s, :], blocks[idx[:, s].long()])
+    return out.reshape(nb * BLOCK_ROWS, d)[:n].to(p.dtype)
+
+
+def build() -> Path:
+    """Compile ``csrc/sparse_gossip.cu`` into a shared library (cached by
+    source hash) and return its path. Raises if ``nvcc`` is missing or fails."""
+    return build_library(SOURCE, _BUILD_DIR)
+
+
+def load() -> ctypes.CDLL:
+    """Build and load the library, and load its kernels into the current
+    CUDA context without launching one (so a CUDA graph capture can launch
+    them). Raises on any CUDA error."""
+    global _lib
+    if _lib is None:
+        args = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+        ]
+        lib = load_library(build(), {
+            "sparse_gossip_f32": args, "sparse_gossip_bf16": args,
+            "sparse_gossip_blocked_f32": args, "sparse_gossip_blocked_bf16": args,
+            "sparse_gossip_load": [],
+        })
+        rc = lib.sparse_gossip_load()
+        if rc != 0:
+            raise RuntimeError(f"sparse_gossip kernels failed to load: CUDA error {rc}")
+        _lib = lib
+    return _lib
+
+
+def _check(idx: torch.Tensor, val: torch.Tensor, p: torch.Tensor, name: str) -> None:
+    if idx.dim() != 2 or val.dim() != 2 or p.dim() != 2:
+        raise ValueError(f"{name} wants 2-D idx, val and P, got {tuple(idx.shape)}, "
+                         f"{tuple(val.shape)} and {tuple(p.shape)}")
+    if idx.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"{name} takes integer idx, got {idx.dtype}")
+    if p.dtype is not torch.float32 and p.dtype is not torch.bfloat16:
+        raise TypeError(f"{name} takes f32 or bf16 P, got {p.dtype}")
+    if idx.device != p.device or val.device != p.device:
+        raise ValueError(f"idx on {idx.device}, val on {val.device}, P on {p.device}")
+    if p.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on CUDA or CPU tensors, got {p.device}")
+
+
+def _launch(name: str, idx, val, p, n: int, k: int) -> torch.Tensor:
+    if not p.is_contiguous():
+        raise ValueError(f"{name} wants a contiguous P (reshape the leaf first)")
+    # Tiny (a few KB): cast once if a caller hands other types.
+    idx = idx.to(torch.int32).contiguous()
+    val = val.to(torch.float32).contiguous()
+    lib = _lib or load()
+    suffix = "f32" if p.dtype is torch.float32 else "bf16"
+    fn = getattr(lib, f"{name}_{suffix}")
+    out = torch.empty_like(p)
+    dev = p.device
+    args = (idx.data_ptr(), val.data_ptr(), p.data_ptr(), out.data_ptr(), n, k, p.shape[1])
+    # The kernel launches on the CUDA runtime's current device: make it P's.
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    count_launch(name)
+    return out
+
+
+def gossip_mix_sparse(idx: torch.Tensor, val: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """ELL ``W @ P`` with f32 accumulation, output in P's dtype.
+
+    idx, val: (N, K) source rows and weights (``core.sparse.ell_from_csr``;
+    padded slots weigh 0); p: (N, D) contiguous, f32 or bf16. CPU tensors
+    take ``sparse_gossip_ref``.
+    """
+    _check(idx, val, p, "gossip_mix_sparse")
+    n, k = idx.shape
+    if val.shape != idx.shape or p.shape[0] != n:
+        raise ValueError(f"gossip_mix_sparse: idx {tuple(idx.shape)}, val {tuple(val.shape)}, "
+                         f"P {tuple(p.shape)} do not match")
+    if p.device.type == "cpu":
+        return sparse_gossip_ref(idx, val, p)
+    return _launch("sparse_gossip", idx, val, p, n, k)
+
+
+def gossip_mix_sparse_blocked(idx: torch.Tensor, val: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Blocked-ELL ``W @ P`` with f32 accumulation, output in P's dtype.
+
+    idx: (NB, KB) source-block ids; val: (NB*8, KB*8) stacked (8, 8) weight
+    tiles (``core.sparse.block_ell_from_csr``); p: (N, D) contiguous, f32 or
+    bf16, with NB = ceil(N / 8). CPU tensors take ``sparse_gossip_blocked_ref``.
+    """
+    _check(idx, val, p, "gossip_mix_sparse_blocked")
+    nb, kb = idx.shape
+    n = p.shape[0]
+    if val.shape != (nb * BLOCK_ROWS, kb * BLOCK_ROWS) or nb != -(-n // BLOCK_ROWS):
+        raise ValueError(f"gossip_mix_sparse_blocked: idx {tuple(idx.shape)}, val "
+                         f"{tuple(val.shape)}, P {tuple(p.shape)} do not match")
+    if p.device.type == "cpu":
+        return sparse_gossip_blocked_ref(idx, val, p)
+    return _launch("sparse_gossip_blocked", idx, val, p, n, kb)

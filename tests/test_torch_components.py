@@ -71,10 +71,10 @@ def test_gossip_cadence(every, gossip):
 
 def test_backend_resolution():
     assert decavg.GossipEngine("ring:n=8", device="cpu").backend == "dense"
-    with pytest.raises(NotImplementedError, match="slice B"):
-        decavg.GossipEngine("ring:n=8", sparse_threshold=8, device="cpu")
-    for backend, sl in [("sparse", "slice B"), ("sparse_pallas", "slice B"),
-                        ("sharded", "slice D"), ("sparse_sharded", "slice D"),
+    assert decavg.GossipEngine("ring:n=8", sparse_threshold=8, device="cpu").backend == "sparse"
+    for backend in ("sparse", "sparse_pallas"):
+        assert decavg.GossipEngine("ring:n=8", backend=backend, device="cpu").backend == backend
+    for backend, sl in [("sharded", "slice D"), ("sparse_sharded", "slice D"),
                         ("permute", "slice D")]:
         with pytest.raises(NotImplementedError, match=sl):
             decavg.GossipEngine("ring:n=8", backend=backend, device="cpu")
@@ -82,10 +82,10 @@ def test_backend_resolution():
         decavg.GossipEngine("ring:n=8", backend="nope", device="cpu")
     caps = decavg.GossipEngine.capabilities()
     ref_caps = ref_decavg.GossipEngine.capabilities()
-    assert set(caps) == {"dense", "pallas"}
+    assert set(caps) == {"dense", "pallas", "sparse", "sparse_pallas"}
     for b, info in caps.items():
-        assert set(info) == set(ref_caps[b]) and info["fused"] is False
-    assert "CUDA" in caps["pallas"]["notes"]
+        assert set(info) == set(ref_caps[b]) and info["fused"] is ref_caps[b]["fused"]
+    assert "CUDA" in caps["pallas"]["notes"] and "CUDA" in caps["sparse_pallas"]["notes"]
 
 
 @pytest.mark.parametrize("backend", ["dense", "pallas"])

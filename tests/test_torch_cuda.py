@@ -1,5 +1,6 @@
-"""The port's CUDA code on the card: the gossip_mix kernel against its plain
-version, and the two mixing backends against each other.
+"""The port's CUDA code on the card: each kernel against its plain version,
+the mixing backends against each other, and ``run_fused``'s captured CUDA
+graphs against the per-round loop.
 
 Every test here is marked ``cuda`` and skips without a card. The file imports
 neither jax nor the reference package, so it also runs where only PyTorch is
@@ -8,13 +9,18 @@ installed, without the suite's conftest:
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import gc
+
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import decavg
+from repro_torch.core import decavg, sparse, topology
+from repro_torch.data.loader import NodeLoader
 from repro_torch.kernels import LAUNCHES, reset_launches
 from repro_torch.kernels import gossip_mix as gm
+from repro_torch.kernels import sparse_gossip as sg
+from repro_torch.train import trainer as trainer_mod
 from repro_torch.tree import tree_leaves
 
 pytestmark = pytest.mark.cuda
@@ -73,3 +79,154 @@ def test_engine_backends_agree_on_the_card(cuda):
     assert LAUNCHES["gossip_mix"] == 2
     for a, b in zip(tree_leaves(got), tree_leaves(dense.mix(params, round=0))):
         torch.testing.assert_close(a, b, rtol=3e-5, atol=3e-5)
+
+
+# -- the sparse kernels ----------------------------------------------------------
+
+SPARSE_CASES = [  # (topology, D): the large_n layouts at their leaf widths, ragged N and D
+    ("ws:n=1024,k=8,beta=0.1", 50176),
+    ("torus:rows=32,cols=32", 64),
+    ("caveman:cliques=128,size=8", 640),
+    ("ring:n=1001", 1),
+    ("ring:n=1001", 513),
+    ("star:n=10", 10),
+]
+
+
+def _layouts(spec: str, dev):
+    csr = sparse.csr_from_graph(topology.make(spec, seed=0))
+    idx, val = sparse.ell_from_csr(csr)
+    bell = sparse.block_ell_from_csr(csr)
+    as_t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    return {
+        "sparse_gossip": (sg.gossip_mix_sparse, sg.sparse_gossip_ref, as_t(idx), as_t(val)),
+        "sparse_gossip_blocked": (sg.gossip_mix_sparse_blocked, sg.sparse_gossip_blocked_ref,
+                                  as_t(bell.idx), as_t(bell.val)),
+    }, csr.shape[0]
+
+
+@pytest.mark.parametrize("spec,d", SPARSE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["sparse_gossip", "sparse_gossip_blocked"])
+def test_sparse_kernel_matches_plain(cuda, spec, d, dtype, kernel):
+    layouts, n = _layouts(spec, cuda)
+    fn, ref, idx, val = layouts[kernel]
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    p = (torch.rand(n, d, generator=gen, device=cuda) * 2 - 1).to(dtype)
+    reset_launches()
+    got = fn(idx, val, p)
+    torch.cuda.synchronize()
+    assert LAUNCHES[kernel] == 1 and sum(LAUNCHES.values()) == 1
+    assert got.dtype == dtype and got.shape == (n, d)
+    torch.testing.assert_close(got.float(), ref(idx, val, p).float(), **_tol(dtype))
+
+
+def test_blocked_kernel_skips_all_zero_tiles_exactly(cuda):
+    """A period stacked beside a denser one carries extra all-zero tiles (and
+    block 0 as their source): the result is bit-identical to its own layout."""
+    csrs = [sparse.csr_from_graph(topology.make(s, seed=0))
+            for s in ("ring:n=203", "er:n=203,p=0.2")]
+    idx_st, val_st = sparse.stack_block_ell(csrs)
+    own = sparse.block_ell_from_csr(csrs[0])
+    assert idx_st.shape[2] > own.idx.shape[1]
+    p = torch.rand(203, 777, device=cuda)
+    got = sg.gossip_mix_sparse_blocked(torch.as_tensor(idx_st[0], device=cuda),
+                                       torch.as_tensor(val_st[0], device=cuda), p)
+    want = sg.gossip_mix_sparse_blocked(torch.as_tensor(own.idx, device=cuda),
+                                        torch.as_tensor(own.val, device=cuda), p)
+    assert torch.equal(got, want)
+
+
+def test_engine_resolves_large_n_to_sparse_on_the_card(cuda):
+    eng = decavg.GossipEngine("ws:n=1024,k=8,beta=0.1")
+    assert eng.backend == "sparse" and eng.device.type == "cuda"
+
+
+def test_sparse_backends_agree_on_the_card(cuda):
+    params = {"w": torch.randn(1024, 784, 64, device=cuda), "b": torch.randn(1024, 64, device=cuda)}
+    dense = decavg.GossipEngine("ws:n=1024,k=8,beta=0.1", backend="dense")
+    want = dense.mix(params, round=0)
+    for backend, kernel in (("sparse", None), ("sparse_pallas", "sparse_gossip_blocked")):
+        eng = decavg.GossipEngine("ws:n=1024,k=8,beta=0.1", backend=backend)
+        reset_launches()
+        got = eng.mix(params, round=0)
+        torch.cuda.synchronize()
+        if kernel is not None:
+            assert LAUNCHES[kernel] == 2
+        for a, b in zip(tree_leaves(got), tree_leaves(want)):
+            torch.testing.assert_close(a, b, rtol=3e-5, atol=3e-5)
+
+
+# -- run_fused on the card --------------------------------------------------------
+
+
+def _trainer(dev, backend, topology_spec="ws:n=64,k=4,beta=0.1", **kw):
+    rng = np.random.default_rng(0)
+    x = rng.random((64 * 12, 32), dtype=np.float32)
+    y = rng.integers(0, 10, size=64 * 12)
+    parts = [np.arange(12 * i, 12 * i + 12) for i in range(64)]
+    loader = NodeLoader(x, y, parts, batch_size=4, seed=1, device=dev)
+    return trainer_mod.DecentralizedTrainer(
+        topology_spec, loader, lr=0.05, momentum=0.9, mix_impl=backend, seed=0,
+        in_dim=32, hidden=(16,), device=dev, **kw,
+    ), x[:50], y[:50]
+
+
+@pytest.mark.parametrize("topology_spec", ["ws:n=64,k=4,beta=0.1", "ws:n=64,k=4,beta=0.1@rewire=2"])
+def test_sparse_fused_is_bit_identical_to_the_loop(cuda, topology_spec):
+    loop, x, y = _trainer(cuda, "sparse", topology_spec)
+    fused, _, _ = _trainer(cuda, "sparse", topology_spec)
+    ha = loop.run(5, eval_every=2, x_test=x, y_test=y)
+    hb = fused.run_fused(5, eval_every=2, x_test=x, y_test=y)
+    for a, b in zip(tree_leaves(loop.params) + tree_leaves(loop.momentum),
+                    tree_leaves(fused.params) + tree_leaves(fused.momentum)):
+        assert torch.equal(a, b)
+    assert [m.round for m in ha] == [m.round for m in hb] == [0, 2, 4]
+
+
+@pytest.mark.parametrize("gossip_every", [1, 3])
+def test_fused_replays_count_kernel_launches(cuda, gossip_every):
+    tr, _, _ = _trainer(cuda, "sparse_pallas", gossip_every=gossip_every)
+    loop, _, _ = _trainer(cuda, "sparse_pallas", gossip_every=gossip_every)
+    reset_launches()
+    tr.run_fused(7)
+    torch.cuda.synchronize()
+    gossip_rounds = sum(tr.engine.is_gossip_round(r) for r in range(7))
+    assert LAUNCHES["sparse_gossip_blocked"] == 4 * gossip_rounds  # 4 leaves a round
+    loop.run(7)
+    for a, b in zip(tree_leaves(loop.params), tree_leaves(tr.params)):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+def test_an_earlier_runs_graphs_are_released(cuda, monkeypatch):
+    """A CUDA graph destroyed during another capture breaks that capture.
+    run_fused releases its graphs when it returns, so a garbage collection
+    inside the next run's capture finds none of them."""
+    tr, _, _ = _trainer(cuda, "dense")
+    tr.run_fused(2)
+    batch_at = tr.loader.batch_at
+
+    def collecting(idx):
+        gc.collect()  # runs inside the next capture, too
+        return batch_at(idx)
+
+    monkeypatch.setattr(tr.loader, "batch_at", collecting)
+    tr.run_fused(2)
+    assert all(torch.isfinite(p).all() for p in tree_leaves(tr.params))
+
+
+def test_failed_capture_raises_instead_of_running_eagerly(cuda, monkeypatch):
+    """A host sync inside the round cannot be captured: run_fused raises."""
+    tr, _, _ = _trainer(cuda, "dense")
+    xent = trainer_mod.softmax_xent
+
+    def syncing_xent(logits, labels):
+        out = xent(logits, labels)
+        float(out.sum().item())  # a device-to-host sync
+        return out
+
+    monkeypatch.setattr(trainer_mod, "softmax_xent", syncing_xent)
+    before = [p.clone() for p in tree_leaves(tr.params)]
+    with pytest.raises(RuntimeError):
+        tr.run_fused(3)
+    assert all(torch.equal(a, b) for a, b in zip(before, tree_leaves(tr.params)))

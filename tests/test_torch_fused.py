@@ -1,0 +1,215 @@
+"""The port's ``run_fused`` against the reference's ``run_fused`` and against
+its own ``run``, the loader's chunk draws, and the runner's choice of path.
+
+Parity with the reference starts both packages from the reference's initial
+weights and feeds the port the reference's batch indices (JAX threefry bits
+that torch cannot draw), as tests/test_torch_slice.py does for ``run``. On
+the CPU ``run_fused`` runs the same staged rounds it captures as CUDA graphs
+on the card.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import partition as ref_partition
+from repro.data import loader as ref_loader
+from repro.data.synthetic import make_mnist_like
+from repro.experiments import presets as ref_presets
+from repro.models.mlp import init_mlp
+from repro.train.trainer import DecentralizedTrainer as RefTrainer
+from repro_torch.convert import params_from_numpy
+from repro_torch.data.loader import NodeLoader
+from repro_torch.experiments import presets, runner
+from repro_torch.experiments.spec import ExperimentSpec
+from repro_torch.experiments.store import ResultsStore
+from repro_torch.train import trainer as port_trainer
+from repro_torch.train.trainer import DecentralizedTrainer
+from repro_torch.tree import tree_leaves
+
+N, BATCH, DIM, HIDDEN = 10, 8, 32, (16,)
+TOPOLOGIES = {"static": "er:n=10,p=0.5", "rewire": "er:n=10,p=0.5@rewire=2"}
+
+
+@pytest.fixture(scope="module")
+def data():
+    ds = make_mnist_like(train_per_class=60, test_per_class=20, dim=DIM, seed=0)
+    return ds, ref_partition.iid(ds.y_train, N, seed=1)
+
+
+def _index_fn(ref_ld):
+    key = jax.random.PRNGKey(ref_ld.seed)
+    sizes = jnp.asarray(ref_ld.sizes.astype(np.int32))
+
+    def index_fn(r, steps):
+        return np.asarray(ref_loader.round_batch_indices(key, r, steps, BATCH, sizes))
+
+    return index_fn
+
+
+def _pair(data, backend, topology, gossip_every):
+    """The reference's trainer, and the port's on its weights and indices."""
+    ds, parts = data
+    ref_ld = ref_loader.NodeLoader(ds.x_train, ds.y_train, parts, batch_size=BATCH, seed=2)
+    ref = RefTrainer(
+        topology, ref_ld, lr=0.05, momentum=0.9, mix_impl=backend, gossip_every=gossip_every,
+        seed=0, in_dim=DIM, init_fn=lambda k: init_mlp(k, in_dim=DIM, hidden=HIDDEN),
+    )
+    loader = NodeLoader(ds.x_train, ds.y_train, parts, batch_size=BATCH, seed=2,
+                        device="cpu", index_fn=_index_fn(ref_ld))
+    port = DecentralizedTrainer(
+        topology, loader, lr=0.05, momentum=0.9, mix_impl=backend, gossip_every=gossip_every,
+        seed=0, in_dim=DIM, params=params_from_numpy(jax.tree.map(np.asarray, ref.params), "cpu"),
+        device="cpu",
+    )
+    return ref, port
+
+
+def _own(data, backend, topology, gossip_every, **kw):
+    ds, parts = data
+    loader = NodeLoader(ds.x_train, ds.y_train, parts, batch_size=BATCH, seed=2, device="cpu")
+    return DecentralizedTrainer(topology, loader, lr=0.05, momentum=0.9, mix_impl=backend,
+                                gossip_every=gossip_every, seed=0, in_dim=DIM, hidden=HIDDEN,
+                                device="cpu", **kw)
+
+
+@pytest.mark.parametrize("backend", ["dense", "sparse", "sparse_pallas"])
+@pytest.mark.parametrize("topology", sorted(TOPOLOGIES))
+@pytest.mark.parametrize("gossip_every", [1, 3])
+def test_run_fused_matches_reference_run_fused(data, backend, topology, gossip_every):
+    ds, _ = data
+    ref, port = _pair(data, backend, TOPOLOGIES[topology], gossip_every)
+    want = ref.run_fused(5, eval_every=2, x_test=ds.x_test, y_test=ds.y_test)
+    got = port.run_fused(5, eval_every=2, x_test=ds.x_test, y_test=ds.y_test)
+    for g, w in zip(tree_leaves(port.params), jax.tree.leaves(ref.params)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=1e-5)
+    for g, w in zip(tree_leaves(port.momentum), jax.tree.leaves(ref.opt_state)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=1e-5)
+    assert [m.round for m in got] == [m.round for m in want] == [0, 2, 4]
+    one_example = 1.0 / len(ds.y_test)
+    for g, w in zip(got, want):
+        assert np.max(np.abs(g.per_node_acc - w.per_node_acc)) <= one_example + 1e-6
+        np.testing.assert_allclose(g.consensus, w.consensus, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("backend", ["dense", "sparse", "sparse_pallas"])
+@pytest.mark.parametrize("topology", sorted(TOPOLOGIES))
+@pytest.mark.parametrize("gossip_every", [0, 1, 3])
+def test_run_fused_matches_own_run(data, backend, topology, gossip_every):
+    """Exact for dense and sparse, whose loop and fused rounds run the same
+    operations; sparse_pallas's loop takes the scalar ELL path on the CPU and
+    its fused path the blocked one, which sum in other orders."""
+    ds, _ = data
+    loop = _own(data, backend, TOPOLOGIES[topology], gossip_every)
+    fused = _own(data, backend, TOPOLOGIES[topology], gossip_every)
+    ha = loop.run(5, eval_every=2, x_test=ds.x_test, y_test=ds.y_test)
+    hb = fused.run_fused(5, eval_every=2, x_test=ds.x_test, y_test=ds.y_test)
+    tol = 1e-6 if backend == "sparse_pallas" else 0.0
+    for tree_a, tree_b in ((loop.params, fused.params), (loop.momentum, fused.momentum)):
+        for a, b in zip(tree_leaves(tree_a), tree_leaves(tree_b)):
+            torch.testing.assert_close(a, b, rtol=tol, atol=tol)
+    assert [m.round for m in ha] == [m.round for m in hb]
+    for a, b in zip(ha, hb):
+        np.testing.assert_allclose(a.per_node_acc, b.per_node_acc, atol=1e-6)
+        np.testing.assert_allclose(a.consensus, b.consensus, rtol=1e-4, atol=1e-6)
+
+
+def test_sparse_p_chunk_keeps_fused_exact(data):
+    loop = _own(data, "sparse", TOPOLOGIES["rewire"], 1, sparse_p_chunk=8)
+    fused = _own(data, "sparse", TOPOLOGIES["rewire"], 1, sparse_p_chunk=8)
+    loop.run(3)
+    fused.run_fused(3)
+    for a, b in zip(tree_leaves(loop.params), tree_leaves(fused.params)):
+        assert torch.equal(a, b)
+
+
+def test_run_fused_streams_chunks(data):
+    ds, _ = data
+    tr = _own(data, "sparse", TOPOLOGIES["static"], 1)
+    seen = []
+    hist = tr.run_fused(8, eval_every=3, x_test=ds.x_test, y_test=ds.y_test, on_round=seen.append)
+    assert [m.round for m in seen] == [0, 3, 6, 7]
+    assert all(h is s for h, s in zip(hist, seen))
+    walls = [m.wall_s for m in seen]
+    assert walls == sorted(walls) and walls[0] > 0
+    assert tr.run_fused(0) == []
+    assert tr.run_fused(4) == []  # no eval: one chunk, no metrics
+    assert all(torch.isfinite(p).all() for p in tree_leaves(tr.params))
+
+
+def test_run_fused_rejects_unfused_backend(data):
+    tr = _own(data, "pallas", TOPOLOGIES["static"], 1)
+    assert not tr.supports_fused
+    with pytest.raises(ValueError, match="run_fused supports"):
+        tr.run_fused(2)
+    assert _own(data, "auto", TOPOLOGIES["static"], 1).supports_fused
+
+
+def test_chunk_indices_are_the_rounds_draws(data):
+    ds, parts = data
+    loader = NodeLoader(ds.x_train, ds.y_train, parts, batch_size=BATCH, seed=5, device="cpu")
+    chunk = loader.chunk_indices(3, 4, steps=2)
+    assert tuple(chunk.shape) == (4, 2, N, BATCH)
+    for i, r in enumerate(range(3, 7)):
+        assert torch.equal(chunk[i], loader.round_indices(r, 2))
+    x, y = loader.batch_at(chunk[0, 0])
+    assert tuple(x.shape) == (N, BATCH, DIM) and tuple(y.shape) == (N, BATCH)
+
+
+# -- the runner --------------------------------------------------------------
+
+TINY = dict(rounds=2, eval_every=1, batch_size=8, data={"train_per_class": 30, "test_per_class": 10},
+            topology="ws:n=12,k=4,beta=0.1", partitioner="hub_focused")
+
+
+@pytest.mark.parametrize(
+    "backend,model,fused",
+    [("dense", {}, True), ("sparse", {"sparse_p_chunk": "auto"}, True),
+     ("sparse_pallas", {"hidden": [16]}, True), ("sparse", {"fused": False}, False),
+     ("pallas", {"hidden": [16]}, False)],
+)
+def test_runner_records_the_path_it_took(tmp_path, monkeypatch, backend, model, fused):
+    seen = {}
+    for name in ("run", "run_fused"):
+        orig = getattr(DecentralizedTrainer, name)
+
+        def spy(self, *a, _orig=orig, _name=name, **kw):
+            seen.update(path=_name, p_chunk=self.engine.sparse_p_chunk)
+            return _orig(self, *a, **kw)
+
+        monkeypatch.setattr(DecentralizedTrainer, name, spy)
+    spec = ExperimentSpec(backend=backend, model=model, **TINY)
+    out = runner.run_spec(spec, ResultsStore(str(tmp_path / "r.jsonl")), device="cpu")
+    assert out["final"]["fused"] is fused
+    assert seen["path"] == ("run_fused" if fused else "run")
+    assert seen["p_chunk"] == model.get("sparse_p_chunk")
+    assert out["final"]["backend"] == backend
+
+
+@pytest.mark.parametrize("preset", ["large_n", "large_n_smoke"])
+def test_large_n_run_ids_equal_across_packages(preset):
+    ref, port = ref_presets.get_preset(preset), presets.get_preset(preset)
+    assert [s.run_id for s in port] == [s.run_id for s in ref]
+
+
+def test_large_n_smoke_runs_its_sparse_spec(tmp_path):
+    """The sparse run goes fused end to end; the sparse_sharded one names
+    the slice that ports it."""
+    path = str(tmp_path / "s.jsonl")
+    summary = runner.run_sweep(presets.get_preset("large_n_smoke"), path, device="cpu")
+    specs = {s.run_id: s for s in presets.get_preset("large_n_smoke")}
+    finals = ResultsStore(path).finals()
+    assert summary["failed"] == [r for r, s in specs.items() if s.backend == "sparse_sharded"]
+    (ok,) = [r for r, s in specs.items() if s.backend == "sparse"]
+    final = finals[ok]["final"]
+    assert final["fused"] is True and final["backend"] == "sparse"
+    assert np.isfinite(final["mean_acc"]) and final["mean_acc"] > 0.1
+    with pytest.raises(NotImplementedError, match="slice D"):
+        runner.run_spec(specs[summary["failed"][0]], ResultsStore(str(tmp_path / "x.jsonl")),
+                        device="cpu")
+
+
+def test_fused_backends_are_the_programs_kinds():
+    assert port_trainer._FUSED_BACKENDS == ("dense", "sparse", "sparse_pallas")

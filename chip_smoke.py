@@ -7,8 +7,9 @@ Phases, in order; any failure exits non-zero, and no phase catches and
 carries on:
 
 1. device   -- the card's name, and its name and power limit from nvidia-smi;
-2. build    -- compile every CUDA source of the port (gossip_mix.cu and
-               sparse_gossip.cu), one nvcc each, started together;
+2. build    -- compile every CUDA source of the port (gossip_mix.cu,
+               sparse_gossip.cu and flash_attention.cu), one nvcc each,
+               started together;
 3. kernel   -- the gossip_mix kernel against its plain version on the card, at
                the main path's 8 leaf shapes, a ragged shape, (1, 1) and an
                N=300 ring (whole zero W tiles), in f32 (3e-5) and bf16 (2e-2),
@@ -39,7 +40,26 @@ carries on:
                runs are bit-identical; dense loop and fused runs of the
                paper's N=100 run agree within 1e-6; and one gossip round of
                each layout through mix_sparse_pallas(blocked=False) (the row
-               gather kernel) agrees with mix_sparse.
+               gather kernel) agrees with mix_sparse;
+10. flash    -- the flash-attention kernel against its plain version, in f32
+               (3e-5) and bf16 (3e-2): the reference's four test cases, the
+               engine's llama3.2-1b shapes (1, S, 32, 8, 64) for S = 128 to
+               1024 and (4, 2048, 32, 8, 64), hd 80 and 128, ragged S=1001,
+               and S=2;
+11. ftimes   -- CUDA-event times at (1, 1024, 32, 8, 64) in bf16: the kernel,
+               its plain version and scaled_dot_product_attention, beside
+               the least time the card could take;
+12. serve    -- llama3.2-1b at full width (16 layers, d_model 2048, bf16,
+               weights from seed 0) through Engine(slots=4, cache_len=1024):
+               8 requests of 37 to 1000 prompt tokens, 16 new tokens each,
+               greedy, cold and then warm; in the warm run the kernel
+               launched once per layer per admission (128);
+               each request's prefill logits through the kernel within 0.1 of
+               the plain path's; time to first token, decode tokens/s and
+               peak memory printed; the same requests with the weights in f32
+               give the same tokens through the kernel and without it;
+13. cli      -- python -m repro_torch.launch.serve with its defaults, on the
+               card.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA card, or without
@@ -51,6 +71,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -64,6 +85,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 MLP_DIMS = (784, 512, 256, 128, 10)
 # (N, D) of each flattened leaf of the paper MLP, in the trainer's leaf order.
 LEAF_D = tuple(d for a, b in zip(MLP_DIMS[:-1], MLP_DIMS[1:]) for d in (b, a * b))
@@ -78,6 +100,21 @@ LARGE_N_TOPOLOGIES = ("ws:n=1024,k=8,beta=0.1", "torus:rows=32,cols=32",
                       "caveman:cliques=128,size=8")
 LARGE_N_DIMS = (784, 64, 10)
 LARGE_N_LEAF_D = tuple(d for a, b in zip(LARGE_N_DIMS[:-1], LARGE_N_DIMS[1:]) for d in (b, a * b))
+# Flash attention (B, S, H, Hkv, hd, window): the reference's test cases, the
+# engine's llama3.2-1b prefill shapes, the other head dims, ragged and tiny S.
+FLASH_ENGINE_CASES = [(1, s, 32, 8, 64, None) for s in (128, 256, 512, 1024)] + [
+    (4, 2048, 32, 8, 64, None)]
+FLASH_CASES = [(1, 64, 4, 2, 32, None), (2, 100, 8, 2, 32, None), (1, 128, 4, 4, 64, 48),
+               (1, 96, 8, 1, 32, 16), *FLASH_ENGINE_CASES, (1, 256, 32, 32, 80, None),
+               (1, 256, 96, 8, 128, None), (1, 1001, 32, 8, 64, None), (1, 2, 32, 8, 64, None)]
+FLASH_TOL = {torch.float32: 3e-5, torch.bfloat16: 3e-2}
+SERVE_LENS = (37, 100, 128, 200, 333, 512, 777, 1000)
+SERVE_MAX_NEW = 16
+# bf16 logits through the kernel vs the plain path: both compute attention in
+# f32 and round it to bf16, so they differ where the f32 results straddle a
+# bf16 rounding boundary (1 ulp = 2^-8 relative); logits are about N(0, 1)
+# at this init, with maxima near 5.
+SERVE_LOGIT_TOL = 0.1
 
 
 def phase(name: str, msg: str) -> None:
@@ -144,6 +181,7 @@ def main() -> int:
     from repro_torch.experiments.spec import ExperimentSpec
     from repro_torch.experiments.store import ResultsStore
     from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gossip_mix as gm
     from repro_torch.kernels import sparse_gossip as sg
     from repro_torch.train.trainer import DecentralizedTrainer
@@ -161,10 +199,11 @@ def main() -> int:
 
     # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        libs = [f.result() for f in [pool.submit(gm.build), pool.submit(sg.build)]]
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        libs = [f.result() for f in [pool.submit(m.build) for m in (gm, sg, fa)]]
     gm._library()
     sg.load()
+    fa._library()
     phase("build", f"{', '.join(lib.name for lib in libs)} built and loaded in "
                    f"{time.perf_counter() - t0:.2f} s")
 
@@ -314,10 +353,18 @@ def main() -> int:
     sparse_times = sparse_round_times(dev, gen)
     large_n_launches = large_n_main_path(dev, kind)
 
+    # 10-13. slice C: the flash-attention kernel and serving
+    flash_err = flash_kernel_checks(dev, gen)
+    flash_times = flash_attention_times(dev, gen)
+    flash_launches = serve_main_path(dev)
+    serve_cli()
+    path_launches = {**large_n_launches, "gossip_mix": launches["gossip_mix"],
+                     "flash_attention": flash_launches}
+
     def entry(name, source, replaces, t, err):
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": large_n_launches[name] if name != "gossip_mix" else launches[name],
+            "launches": path_launches[name],
             "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         }
@@ -334,6 +381,8 @@ def main() -> int:
         entry("sparse_gossip", "src/repro_torch/kernels/csrc/sparse_gossip.cu",
               "src/repro/kernels/sparse_gossip.py:196", sparse_times["sparse_gossip"],
               sparse_err["sparse_gossip"]),
+        entry("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
+              "src/repro/kernels/flash_attention.py:101", flash_times, flash_err),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -576,6 +625,239 @@ def large_n_main_path(dev, kind: str) -> dict[str, int]:
         if not err <= TOL[torch.float32]:
             fail(f"{spec}: row gather kernel round differs from mix_sparse by {err}")
     return launches
+
+
+def flash_kernel_checks(dev, gen) -> float:
+    """Phase 10: the kernel against its plain version at every case, f32 and
+    bf16; returns the largest bf16 error at the engine's shapes (serving runs
+    in bf16)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    engine_err = 0.0
+    for case in FLASH_CASES:
+        b, s, h, hkv, hd, window = case
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn(b, s, h, hd, generator=gen, device=dev).to(dtype)
+            k = torch.randn(b, s, hkv, hd, generator=gen, device=dev).to(dtype)
+            v = torch.randn(b, s, hkv, hd, generator=gen, device=dev).to(dtype)
+            got = fa.flash_attention(q, k, v, window=window)
+            torch.cuda.synchronize()
+            if got.dtype != dtype or got.shape != q.shape:
+                fail(f"flash {case} {dtype}: got {got.dtype} {tuple(got.shape)}")
+            err = float((got.float() - fa.flash_attention_ref(q, k, v, window=window).float())
+                        .abs().max())
+            if not err <= FLASH_TOL[dtype]:
+                fail(f"flash {case} {dtype}: max_abs_err {err} > {FLASH_TOL[dtype]}")
+            if case in FLASH_ENGINE_CASES and dtype == torch.bfloat16:
+                engine_err = max(engine_err, err)
+            phase("flash", f"(B,S,H,Hkv,hd,window)={case} {str(dtype):14s} max_abs_err {err:.3e} "
+                           f"(tol {FLASH_TOL[dtype]:g})")
+        del q, k, v, got
+    torch.cuda.empty_cache()
+    return engine_err
+
+
+def flash_attention_times(dev, gen) -> dict:
+    """Phase 11: one causal prefill attention at the engine's largest
+    admission, (1, 1024, 32, 8, 64) bf16."""
+    from repro_torch.kernels import flash_attention as fa
+
+    b, s, h, hkv, hd = 1, 1024, 32, 8, 64
+    q = torch.randn(b, s, h, hd, generator=gen, device=dev).bfloat16()
+    k = torch.randn(b, s, hkv, hd, generator=gen, device=dev).bfloat16()
+    v = torch.randn(b, s, hkv, hd, generator=gen, device=dev).bfloat16()
+    t_k = time_ms(lambda: fa.flash_attention(q, k, v))
+    t_p = time_ms(lambda: fa.flash_attention_ref(q, k, v))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # SDPA's (B, H, S, hd) views
+    t_lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True))
+    # Each input read once, the output written once; the causal pairs this
+    # run attends (S(S+1)/2 a head), 2 FLOP per multiply-add in QK^T and PV.
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    flops = 4 * hd * b * h * s * (s + 1) // 2
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
+    times = {"ms": t_k, "plain_ms": t_p, "bound_ms": max(t_bytes, t_ops),
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": t_lib}
+    phase("ftimes", f"(1,1024,32,8,64) bf16 causal: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+                    f"scaled_dot_product_attention {t_lib:.4f} ms; bound {times['bound_ms']:.4f} ms "
+                    f"(bytes {t_bytes:.4f} ms, {flops / 1e9:.3f} GFLOP {t_ops:.4f} ms)")
+    return times
+
+
+def serve_requests(params, cfg, prompts, dev, **engine_kw) -> tuple[dict, list[float], dict]:
+    """All prompts submitted at once to a fresh Engine(slots=4,
+    cache_len=1024), drained step by step. Returns the tokens by request,
+    the times to first token (s), and decode counts and time over the steps
+    that admitted nothing."""
+    from repro_torch.serve.engine import Engine
+
+    eng = Engine(params, cfg, slots=4, cache_len=1024, device=dev, **engine_kw)
+    t0 = time.perf_counter()
+    rids = [eng.submit(p, max_new=SERVE_MAX_NEW) for p in prompts]
+    ttft: dict[int, float] = {}
+    decode = {"tokens": 0, "s": 0.0}
+    while True:
+        t_step = time.perf_counter()
+        events = eng.step()  # ends in a host copy of the tokens: synchronized
+        now = time.perf_counter()
+        if not events:
+            break
+        if all(e["rid"] in ttft for e in events):  # no admission in this step
+            decode["tokens"] += len(events)
+            decode["s"] += now - t_step
+        for e in events:
+            ttft.setdefault(e["rid"], now - t0)
+    out = eng.run()
+    return out, [ttft[r] for r in rids], decode
+
+
+def serve_main_path(dev) -> int:
+    """Phase 12; returns the flash kernel's launches in the bf16 engine run."""
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import transformer as TF
+    from repro_torch.serve import decode as SD
+    from repro_torch.serve.engine import _bucket
+    from repro_torch.tree import tree_map
+
+    cfg = cfgbase.get("llama3.2-1b")
+    t0 = time.perf_counter()
+    params = TF.init_params(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    torch.cuda.synchronize()
+    n_params = TF.param_count(params)
+    phase("serve", f"{cfg.arch_id}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+                   f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.hd}, d_ff {cfg.d_ff}, "
+                   f"vocab {cfg.vocab_size}: {n_params} {cfg.param_dtype} parameters "
+                   f"({n_params * 2 / 1e9:.2f} GB), drawn in {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32) for n in SERVE_LENS]
+
+    # A cold run first: the first call of each kernel and matmul shape pays
+    # the module load and cuBLAS's set-up. The counts and the numbers are
+    # those of the second, warm run.
+    cold_toks, cold_ttft, _ = serve_requests(params, cfg, prompts, dev)
+    phase("serve", "cold run (first calls included): time to first token "
+                   + ", ".join(f"{t * 1e3:.1f}" for t in cold_ttft) + " ms")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    toks, ttft, decode = serve_requests(params, cfg, prompts, dev)
+    launches = LAUNCHES["flash_attention"]
+    peak = torch.cuda.max_memory_allocated()
+    if any(not np.array_equal(toks[r], cold_toks[r]) for r in toks):
+        fail("the warm run's tokens differ from the cold run's")
+    want = cfg.num_layers * len(prompts)
+    phase("serve", f"Engine(slots=4, cache_len=1024), {len(prompts)} requests x {SERVE_MAX_NEW} "
+                   f"new tokens, bf16, flash auto: flash_attention launches {launches} "
+                   f"(want {cfg.num_layers} layers x {len(prompts)} admissions = {want})")
+    if launches != want:
+        fail(f"flash_attention launched {launches} times on the serving path, want {want}")
+    for n, t in zip(SERVE_LENS, ttft):
+        phase("serve", f"prompt {n:4d} tokens (bucket {min(_bucket(n), 1024):4d}): "
+                       f"time to first token {t * 1e3:.2f} ms")
+    phase("serve", f"decode: {decode['tokens']} tokens in {decode['s'] * 1e3:.2f} ms over the "
+                   f"steps that admitted nothing = {decode['tokens'] / decode['s']:.1f} tokens/s")
+    phase("serve", f"device memory: {base / 2**30:.3f} GiB allocated before the run (weights "
+                   f"{n_params * 2 / 2**30:.3f} GiB, the rest held by earlier phases), peak "
+                   f"{peak / 2**30:.3f} GiB, so the run itself peaked at "
+                   f"{(peak - base) / 2**30:.3f} GiB above its start")
+    for rid, p in enumerate(prompts):
+        if toks[rid].shape != (SERVE_MAX_NEW,) or not (0 <= toks[rid]).all() \
+                or not (toks[rid] < cfg.vocab_size).all():
+            fail(f"request {rid}: tokens {toks[rid]}")
+
+    profile_serving(params, cfg, prompts, dev)
+
+    # Each request's prefill, as the engine admits it, through the kernel
+    # and through the plain path.
+    worst = 0.0
+    for n, p in zip(SERVE_LENS, prompts):
+        padded = torch.zeros((1, min(_bucket(n), 1024)), dtype=torch.int32, device=dev)
+        padded[0, :n] = torch.from_numpy(p).to(dev)
+        length = torch.tensor([n], dtype=torch.int32, device=dev)
+        logits = {}
+        for flash in (True, False):
+            row = TF.init_cache(cfg, 1, 1024, per_slot=True, device=dev)
+            logits[flash], _ = SD.prefill(params, cfg, padded, row, length=length, flash=flash)
+        err = float((logits[True] - logits[False]).abs().max())
+        worst = max(worst, err)
+        phase("serve", f"prompt {n:4d}: prefill logits kernel vs plain max_abs_err {err:.3e} "
+                       f"(|logit| max {float(logits[False].abs().max()):.3f}, tol "
+                       f"{SERVE_LOGIT_TOL}); same first token: "
+                       f"{int(logits[True].argmax()) == int(logits[False].argmax())}")
+    if not worst <= SERVE_LOGIT_TOL:
+        fail(f"bf16 prefill logits through the kernel differ from the plain path by {worst}")
+
+    # f32 weights: the kernel's path and the plain path give the same tokens.
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+    params32 = tree_map(lambda t: t.float(), params)
+    del params
+    torch.cuda.empty_cache()
+    runs = {}
+    for flash in (True, False):
+        runs[flash], ttft32, _ = serve_requests(params32, cfg32, prompts, dev, flash=flash)
+    same = all(np.array_equal(runs[True][r], runs[False][r]) for r in range(len(prompts)))
+    phase("serve", f"f32 weights: tokens through the kernel and the plain path identical: {same} "
+                   f"(kernel path time to first token {min(ttft32) * 1e3:.1f} to "
+                   f"{max(ttft32) * 1e3:.1f} ms)")
+    if not same:
+        fail("f32 serving through the flash kernel and the plain path gave different tokens")
+    del params32
+    torch.cuda.empty_cache()
+    return launches
+
+
+def profile_serving(params, cfg, prompts, dev) -> None:
+    """Where a serving step's time goes (printed, not asserted): torch.profiler
+    over one warm step that admits the 1000-token prompt (prefill plus one
+    decode) and over one decode step of four active slots. The device's busy
+    share is its summed kernel time over the step's host wall time, which the
+    profiler itself lengthens."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve.engine import Engine
+
+    def one(name, eng):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        # Device kernels only: the host ops that launch them report the
+        # same time again.
+        rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+                if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0]
+        busy_us = sum(r[1] for r in rows)
+        if not rows:
+            phase("profile", f"{name}: the profiler saw no device time (host wall {wall_us:.0f} us)")
+            return
+        top = sorted(rows, key=lambda r: -r[1])[:6]
+        phase("profile", f"{name}: host wall {wall_us:.0f} us, device busy {busy_us:.0f} us "
+                         f"({100 * busy_us / wall_us:.1f}%), {sum(r[2] for r in rows)} kernels; "
+                         "top: " + "; ".join(f"{k[:60]} x{c} {t:.0f} us" for k, t, c in top))
+
+    big = Engine(params, cfg, slots=1, cache_len=1024, device=dev)
+    big.submit(prompts[-1], max_new=2)
+    one(f"admission of {len(prompts[-1])} tokens + 1 decode", big)
+    four = Engine(params, cfg, slots=4, cache_len=1024, device=dev)
+    for p in prompts[:4]:
+        four.submit(p, max_new=SERVE_MAX_NEW)
+    four.step()  # the four admissions
+    one("decode step, 4 slots", four)
+
+
+def serve_cli() -> None:
+    """Phase 13: the serve CLI with its defaults, on the card."""
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve"], capture_output=True, text=True,
+        timeout=600, cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+    )
+    for line in res.stdout.strip().splitlines():
+        phase("cli", line)
+    if res.returncode != 0 or "generated (8, 48)" not in res.stdout:
+        fail(f"python -m repro_torch.launch.serve exited {res.returncode}:\n{res.stderr[-3000:]}")
 
 
 if __name__ == "__main__":

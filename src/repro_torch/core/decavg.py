@@ -196,9 +196,9 @@ _BACKEND_INFO = {
 
 # The reference's other backends, and the slice of the port that brings each.
 _LATER_BACKENDS = {
-    "sharded": "slice D",
-    "sparse_sharded": "slice D",
-    "permute": "slice D",
+    "sharded": "slice F",
+    "sparse_sharded": "slice F",
+    "permute": "slice F",
 }
 
 

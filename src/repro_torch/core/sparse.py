@@ -25,7 +25,7 @@ engine and the fused program move the ELL views they mix with to the device
 once per schedule period.
 
 ``ShardedCSR``, ``shard_csr``, ``stack_shard_csr`` and ``halo_wire_bytes``
-come with the sharded backends (slice D).
+come with the sharded backends (slice F).
 """
 
 from __future__ import annotations

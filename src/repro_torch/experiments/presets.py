@@ -7,9 +7,9 @@ package, so every spec keeps its run id).
 - ``large_n``, ``large_n_smoke``: the scaling runs. Their single-device
   runs (``large_n``'s six N=1024 runs and ``large_n_smoke``'s ``sparse``
   run) take the sparse backend and ``run_fused``; the ``sparse_sharded``
-  runs fail with NotImplementedError until slice D ports that backend.
-- ``churn_smoke``: fault injection — not ported yet (slice C).
-- ``lm_smoke``: LLM cohorts — not ported yet (slice E).
+  runs fail with NotImplementedError until slice F ports that backend.
+- ``churn_smoke``: fault injection — not ported yet (slice E).
+- ``lm_smoke``: LLM cohorts — not ported yet (slice D).
 """
 
 from __future__ import annotations

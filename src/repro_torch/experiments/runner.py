@@ -11,7 +11,7 @@ sparse_pallas) unless the spec says ``model={"fused": False}``, and
 ``final.fused`` records the path it took.
 
 Not ported yet, and rejected with ``NotImplementedError``: specs with
-``faults`` (slice C), the ``lm`` executor (slice E) and ``processes > 1``.
+``faults`` (slice E), the ``lm`` executor (slice D) and ``processes > 1``.
 
 ``run_sweep`` skips specs whose run_id already has a completed ``run_end``
 in the store. ``run_id`` is the reference's content hash, so keep the two
@@ -223,10 +223,10 @@ def _executor(spec: ExperimentSpec):
     """The executor for ``spec``, or NotImplementedError for what the port
     does not run yet."""
     if spec.faults is not None:
-        raise NotImplementedError("faults: slice C")
+        raise NotImplementedError("faults: slice E")
     kind = spec.model.get("kind", "mlp")
     if kind != "mlp":
-        raise NotImplementedError(f"model kind {kind!r}: slice E")
+        raise NotImplementedError(f"model kind {kind!r}: slice D")
     return _run_mlp
 
 

@@ -16,7 +16,9 @@ from __future__ import annotations
 
 import torch
 
-LAUNCHES: dict[str, int] = {"gossip_mix": 0, "sparse_gossip": 0, "sparse_gossip_blocked": 0}
+LAUNCHES: dict[str, int] = {
+    "gossip_mix": 0, "sparse_gossip": 0, "sparse_gossip_blocked": 0, "flash_attention": 0,
+}
 CAPTURED: dict[str, int] = dict.fromkeys(LAUNCHES, 0)
 
 

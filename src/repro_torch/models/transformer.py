@@ -1,0 +1,392 @@
+"""Decoder-only LMs of attention + dense-FFN layers, built from one
+``ArchConfig``. The port of ``repro/models/transformer.py``.
+
+Public API (plain functions over parameter dicts of tensors):
+  init_params(generator, cfg, device=None)       -> params
+  forward(params, cfg, tokens, ...)              -> (logits, moe_aux)
+  init_cache(cfg, batch, cache_len, dtype, ...)  -> stacked per-layer caches
+  prefill_forward(params, cfg, tokens, cache)    -> (last logits, cache)
+  decode_step(params, cfg, token, cache)         -> (logits, cache)
+
+The layout is the reference's: ``params["blocks"]`` holds one subtree per
+layer of the pattern, each leaf with a leading group axis G
+(``cfg.num_groups``), so a JAX parameter tree carries over as it is. A
+Python loop over G takes the place of the reference's ``lax.scan``. Caches
+are stacked the same way, with real (not broadcast) tensors per group, and
+are updated in place (see ``layers``).
+
+Not ported yet (ROADMAP slice G): the mamba, rwkv and moe mixers and FFNs,
+the encoder (``encode``, ``memory``, cross-attention stacks) and VLM prefix
+embeddings; they raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ArchConfig, LayerSpec
+from repro_torch.device import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.tree import tree_leaves
+
+__all__ = [
+    "decode_step",
+    "forward",
+    "init_cache",
+    "init_params",
+    "param_count",
+    "prefill_forward",
+]
+
+PyTree = Any
+_LATER = "not ported yet (ROADMAP slice G)"
+
+
+def _attn_spec(cfg: ArchConfig, *, window: int | None, flash: bool = False) -> L.AttnSpec:
+    return L.AttnSpec(
+        num_heads=cfg.num_heads,
+        num_kv_heads=cfg.num_kv_heads,
+        head_dim=cfg.hd,
+        rope_theta=cfg.rope_theta,
+        causal=True,
+        window=window,
+        flash=flash,
+    )
+
+
+def _check_supported(cfg: ArchConfig) -> None:
+    for spec in cfg.pattern:
+        if spec.mixer != "attn":
+            raise NotImplementedError(f"{cfg.arch_id}: the {spec.mixer} mixer is {_LATER}")
+        if spec.ffn not in ("dense", "none"):
+            raise NotImplementedError(f"{cfg.arch_id}: the {spec.ffn} FFN is {_LATER}")
+    if cfg.enc_dec:
+        raise NotImplementedError(f"{cfg.arch_id}: encoder-decoder models are {_LATER}")
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+
+def _init_norm(cfg: ArchConfig, dtype, device, lead: tuple[int, ...] = ()) -> PyTree:
+    p = {"w": torch.ones(lead + (cfg.d_model,), dtype=dtype, device=device)}
+    if cfg.norm == "ln":
+        p["b"] = torch.zeros(lead + (cfg.d_model,), dtype=dtype, device=device)
+    return p
+
+
+def _init_layer(gen: torch.Generator, cfg: ArchConfig, spec: LayerSpec, dtype) -> PyTree:
+    lead = (cfg.num_groups,)
+    dev = gen.device
+    p: PyTree = {"norm1": _init_norm(cfg, dtype, dev, lead),
+                 "norm2": _init_norm(cfg, dtype, dev, lead)}
+    p["attn"] = L.init_attention(gen, cfg.d_model, _attn_spec(cfg, window=None), dtype, lead)
+    if spec.ffn == "dense":
+        p["ffn"] = L.init_ffn(gen, cfg.d_model, cfg.d_ff, dtype, lead)
+    return p
+
+
+def init_params(generator: torch.Generator | int, cfg: ArchConfig, device=None) -> PyTree:
+    """The full parameter tree, drawn from ``generator`` (or a seed) on
+    ``device`` (None: the card); layer leaves carry the leading group axis.
+    The draws are the port's own: torch cannot give JAX's bits."""
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    gen = generator
+    if not isinstance(gen, torch.Generator):
+        gen = torch.Generator(device=dev).manual_seed(int(generator))
+    if gen.device.type != dev.type:
+        raise ValueError(f"generator on {gen.device}, params wanted on {dev}")
+    dtype = cfg.dtype()
+    scale = cfg.d_model**-0.5
+    return {
+        "embed": L._normal(gen, (cfg.vocab_size, cfg.d_model), scale, dtype),
+        "blocks": {f"layer{i}": _init_layer(gen, cfg, spec, dtype)
+                   for i, spec in enumerate(cfg.pattern)},
+        "final_norm": _init_norm(cfg, dtype, dev),
+        "lm_head": L._normal(gen, (cfg.d_model, cfg.vocab_size), scale, dtype),
+    }
+
+
+def param_count(params: PyTree) -> int:
+    return sum(int(x.numel()) for x in tree_leaves(params))
+
+
+# ---------------------------------------------------------------------------
+# Layer application
+# ---------------------------------------------------------------------------
+
+
+def _at(tree: PyTree, g: int) -> PyTree:
+    """Group ``g`` of a stacked tree (views; ``None`` leaves stay)."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _at(v, g) for k, v in tree.items()}
+    return tree[g]
+
+
+def _apply_layer(
+    p: PyTree,
+    x: torch.Tensor,
+    cfg: ArchConfig,
+    spec: LayerSpec,
+    *,
+    window: int | None,
+    cache: PyTree | None,
+    cross: PyTree | None,
+    memory: torch.Tensor | None,
+    positions: torch.Tensor | None,
+    flash: bool = False,
+) -> tuple[torch.Tensor, PyTree | None, torch.Tensor]:
+    """Pre-norm residual layer. Returns (x, new_cache, moe_aux)."""
+    if spec.mixer != "attn":
+        raise NotImplementedError(f"the {spec.mixer} mixer is {_LATER}")
+    if cross is not None or memory is not None:
+        raise NotImplementedError(f"cross-attention over encoder memory is {_LATER}")
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = L.norm(x, p["norm1"], cfg.norm)
+    aspec = _attn_spec(cfg, window=window, flash=flash)
+    y, c = L.attention_layer(
+        p["attn"], h, aspec, positions=positions,
+        cache=None if cache is None else cache["mixer"],
+    )
+    new_cache: PyTree = {"mixer": c}
+    x = x + y
+
+    h = L.norm(x, p["norm2"], cfg.norm)
+    if spec.ffn == "dense":
+        y = L.swiglu_ffn(p["ffn"], h) if cfg.ffn_act == "swiglu" else L.gelu_ffn(p["ffn"], h)
+    elif spec.ffn == "none":
+        y = torch.zeros_like(x)
+    else:
+        raise NotImplementedError(f"the {spec.ffn} FFN is {_LATER}")
+    new_cache["ffn"] = None
+    return x + y, new_cache, aux
+
+
+def _apply_group(
+    gp: PyTree,
+    x: torch.Tensor,
+    cfg: ArchConfig,
+    *,
+    window: int | None,
+    cache: PyTree | None,
+    cross: PyTree | None,
+    memory: torch.Tensor | None,
+    positions: torch.Tensor | None,
+    flash: bool = False,
+) -> tuple[torch.Tensor, PyTree | None, torch.Tensor]:
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    new_cache: PyTree = {}
+    for i, spec in enumerate(cfg.pattern):
+        name = f"layer{i}"
+        x, c, aux = _apply_layer(
+            gp[name], x, cfg, spec,
+            window=window,
+            cache=None if cache is None else cache[name],
+            cross=None if cross is None else cross[name],
+            memory=memory,
+            positions=positions,
+            flash=flash,
+        )
+        new_cache[name] = c
+        aux_total = aux_total + aux
+    return x, new_cache, aux_total
+
+
+def _groups(params: PyTree, cfg: ArchConfig, x: torch.Tensor, *, window, cache, memory,
+            positions, flash: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """Run the layer groups in order (the reference's scan), ``cache`` (a
+    stacked cache or None) updated in place."""
+    if "cross" in params or memory is not None:
+        raise NotImplementedError(f"encoder memory and cross-attention are {_LATER}")
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for g in range(cfg.num_groups):
+        x, _, a = _apply_group(
+            _at(params["blocks"], g), x, cfg, window=window, cache=_at(cache, g),
+            cross=None, memory=None, positions=positions, flash=flash,
+        )
+        aux = aux + a
+    return x, aux
+
+
+def _window(cfg: ArchConfig, window: int | None) -> int | None:
+    return window if window is not None else (cfg.sliding_window if cfg.always_window else None)
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence forward
+# ---------------------------------------------------------------------------
+
+
+def forward(
+    params: PyTree,
+    cfg: ArchConfig,
+    tokens: torch.Tensor,
+    *,
+    prefix_embeds: torch.Tensor | None = None,
+    memory: torch.Tensor | None = None,
+    window: int | None = None,
+    last_only: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """tokens: (B, S) int -> (logits (B, S, V) in the param dtype, moe_aux).
+    ``last_only`` gives the last position's logits, (B, V), sliced before the
+    head matmul."""
+    if prefix_embeds is not None:
+        raise NotImplementedError(f"VLM prefix embeddings are {_LATER}")
+    x = params["embed"][tokens]
+    positions = torch.arange(x.shape[1], device=x.device)
+    x, aux = _groups(params, cfg, x, window=_window(cfg, window), cache=None,
+                     memory=memory, positions=positions)
+    x = L.norm(x, params["final_norm"], cfg.norm)
+    if last_only:
+        return x[:, -1] @ params["lm_head"], aux
+    return x @ params["lm_head"], aux
+
+
+def encode(params: PyTree, cfg: ArchConfig, frames: torch.Tensor) -> torch.Tensor:
+    raise NotImplementedError(f"the encoder of encoder-decoder models is {_LATER}")
+
+
+# ---------------------------------------------------------------------------
+# Decode (serving)
+# ---------------------------------------------------------------------------
+
+
+def init_cache(
+    cfg: ArchConfig,
+    batch: int,
+    cache_len: int,
+    dtype=None,
+    *,
+    kv_quant: bool = False,
+    per_slot: bool = False,
+    device=None,
+) -> PyTree:
+    """Stacked per-group caches on ``device`` (None: the card): for each
+    attention layer a ring buffer of ``cache_len`` positions (sliding-window
+    callers pass the window). ``kv_quant`` stores int8 values and
+    per-(token, head) f32 scales. ``per_slot`` gives every batch row its own
+    position counter (``index`` (G, batch) instead of (G,)), the
+    continuous-batching engine's layout. Every group gets tensors of its own
+    (the reference's ``broadcast_to`` would alias them under in-place writes)."""
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    dtype = dtype or cfg.dtype()
+    g = cfg.num_groups
+    kv_shape = (g, batch, cache_len, cfg.num_kv_heads, cfg.hd)
+
+    def zeros(shape, dt):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    def one_layer() -> PyTree:
+        index = zeros((g, batch) if per_slot else (g,), torch.int32)
+        if kv_quant:
+            mixer = {
+                "k": zeros(kv_shape, torch.int8),
+                "v": zeros(kv_shape, torch.int8),
+                "k_scale": zeros(kv_shape[:-1] + (1,), torch.float32),
+                "v_scale": zeros(kv_shape[:-1] + (1,), torch.float32),
+                "index": index,
+            }
+        else:
+            mixer = {"k": zeros(kv_shape, dtype), "v": zeros(kv_shape, dtype), "index": index}
+        return {"mixer": mixer, "ffn": None}
+
+    return {f"layer{i}": one_layer() for i in range(cfg.period)}
+
+
+def _cache_leaves(cache: PyTree, name: str) -> list[torch.Tensor]:
+    """Every leaf called ``name`` in a cache tree."""
+    out = []
+    for key, val in cache.items():
+        if isinstance(val, dict):
+            out += _cache_leaves(val, name)
+        elif key == name:
+            out.append(val)
+    return out
+
+
+@torch.no_grad()
+def prefill_forward(
+    params: PyTree,
+    cfg: ArchConfig,
+    tokens: torch.Tensor,
+    cache: PyTree,
+    *,
+    length: torch.Tensor | None = None,
+    memory: torch.Tensor | None = None,
+    window: int | None = None,
+    flash: bool = False,
+) -> tuple[torch.Tensor, PyTree]:
+    """Full-prompt prefill: one forward pass that writes the whole KV cache.
+
+    tokens: (B, S), right-padded to a common S when lengths differ; length:
+    (B,) true prompt lengths (default S). Returns the f32 logits of each
+    row's last real token, (B, V), and the cache, filled in place: the state
+    ``decode_step`` continues from. The cache must be fresh.
+
+    As in the reference, padded positions get K/V entries that the written
+    ``index`` (the true length) marks as unwritten, so decode never attends
+    them; that needs S <= the ring length, so ``length`` with a prompt wider
+    than the ring raises, as does a per-row ``length`` with a cache whose
+    index is shared by the batch. Both are checked before anything is
+    written. ``flash`` routes every attention layer through the CUDA
+    flash-attention kernel (its plain version for CPU tensors).
+    """
+    if length is not None:
+        rings = [k.shape[-3] for k in _cache_leaves(cache, "k")]  # (G, B, T, Hkv, hd)
+        if rings and tokens.shape[1] > min(rings):
+            raise ValueError(
+                f"right-padded prefill (length given) needs padded width <= "
+                f"the attention cache ring ({tokens.shape[1]} > {min(rings)}): "
+                "with S > ring, padded K/V wraps below the written index and "
+                "decode attends it as real past context — shorten the pad "
+                "width or grow the cache"
+            )
+        length = torch.as_tensor(length, dtype=torch.int32, device=tokens.device)
+        if length.dim() == 1 and any(i.dim() == 1 for i in _cache_leaves(cache, "index")):
+            raise ValueError(
+                "per-row prompt lengths need a per-slot cache "
+                "(init_cache(..., per_slot=True)); this cache has a "
+                "scalar index shared by the whole batch"
+            )
+    x = params["embed"][tokens]
+    x, _ = _groups(params, cfg, x, window=_window(cfg, window), cache=cache,
+                   memory=memory, positions=None, flash=flash)
+    x = L.norm(x, params["final_norm"], cfg.norm)
+    if length is None:
+        last = x[:, -1]
+    else:
+        lvec = torch.broadcast_to(length, x.shape[:1]).long()
+        last = x[torch.arange(x.shape[0], device=x.device), lvec - 1]
+        for index in _cache_leaves(cache, "index"):
+            index.copy_(torch.broadcast_to(length, index.shape))
+    # Slice before the head matmul: full-sequence logits are a large
+    # transient for nothing.
+    logits = (last @ params["lm_head"]).float()
+    return logits, cache
+
+
+@torch.no_grad()
+def decode_step(
+    params: PyTree,
+    cfg: ArchConfig,
+    token: torch.Tensor,
+    cache: PyTree,
+    *,
+    memory: torch.Tensor | None = None,
+    window: int | None = None,
+) -> tuple[torch.Tensor, PyTree]:
+    """One-token decode. token: (B,) int. Returns (f32 logits (B, V), the
+    cache, advanced in place)."""
+    x = params["embed"][token][:, None, :]  # (B, 1, d)
+    x, _ = _groups(params, cfg, x, window=_window(cfg, window), cache=cache,
+                   memory=memory, positions=None)
+    x = L.norm(x, params["final_norm"], cfg.norm)
+    logits = (x[:, 0] @ params["lm_head"]).float()
+    return logits, cache

@@ -24,7 +24,7 @@ Two execution paths over the same numerics, as in the reference:
   params as ``run`` (the tests hold them to 1e-6, and to the bit for the
   sparse backend). On the CPU the same staged rounds run eagerly.
 
-``compress=`` and ``faults=`` raise (slice C).
+``compress=`` and ``faults=`` raise (slice E).
 """
 
 from __future__ import annotations
@@ -105,9 +105,9 @@ class DecentralizedTrainer:
         device: str | torch.device | None = None,
     ):
         if compress is not None:
-            raise NotImplementedError("compress= (CHOCO gossip): slice C")
+            raise NotImplementedError("compress= (CHOCO gossip): slice E")
         if faults is not None:
-            raise NotImplementedError("faults: slice C")
+            raise NotImplementedError("faults: slice E")
         self.engine = decavg.GossipEngine(
             graph, data_sizes=loader.sizes.astype(np.float64), backend=mix_impl,
             matrix=matrix, sparse_p_chunk=sparse_p_chunk, gossip_every=gossip_every,

@@ -74,8 +74,8 @@ def test_backend_resolution():
     assert decavg.GossipEngine("ring:n=8", sparse_threshold=8, device="cpu").backend == "sparse"
     for backend in ("sparse", "sparse_pallas"):
         assert decavg.GossipEngine("ring:n=8", backend=backend, device="cpu").backend == backend
-    for backend, sl in [("sharded", "slice D"), ("sparse_sharded", "slice D"),
-                        ("permute", "slice D")]:
+    for backend, sl in [("sharded", "slice F"), ("sparse_sharded", "slice F"),
+                        ("permute", "slice F")]:
         with pytest.raises(NotImplementedError, match=sl):
             decavg.GossipEngine("ring:n=8", backend=backend, device="cpu")
     with pytest.raises(ValueError, match="unknown backend"):

@@ -1,6 +1,7 @@
 """The port's CUDA code on the card: each kernel against its plain version,
-the mixing backends against each other, and ``run_fused``'s captured CUDA
-graphs against the per-round loop.
+the mixing backends against each other, ``run_fused``'s captured CUDA
+graphs against the per-round loop, and serving through the flash-attention
+kernel against the plain attention path.
 
 Every test here is marked ``cuda`` and skips without a card. The file imports
 neither jax nor the reference package, so it also runs where only PyTorch is
@@ -17,9 +18,14 @@ import torch
 
 from repro_torch.core import decavg, sparse, topology
 from repro_torch.data.loader import NodeLoader
+from repro_torch.configs import base as cfgbase
 from repro_torch.kernels import LAUNCHES, reset_launches
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gossip_mix as gm
 from repro_torch.kernels import sparse_gossip as sg
+from repro_torch.models import transformer as TF
+from repro_torch.serve import decode as SD
+from repro_torch.serve.engine import Engine
 from repro_torch.train import trainer as trainer_mod
 from repro_torch.tree import tree_leaves
 
@@ -230,3 +236,76 @@ def test_failed_capture_raises_instead_of_running_eagerly(cuda, monkeypatch):
     with pytest.raises(RuntimeError):
         tr.run_fused(3)
     assert all(torch.equal(a, b) for a, b in zip(before, tree_leaves(tr.params)))
+
+
+# -- flash attention and serving (slice C) -----------------------------------
+
+
+@pytest.mark.parametrize(
+    "b,s,h,hkv,hd,window",
+    [(1, 64, 4, 2, 32, None), (2, 100, 8, 2, 32, None), (1, 128, 4, 4, 64, 48),
+     (1, 96, 8, 1, 32, 16), (1, 300, 32, 8, 64, None), (1, 130, 16, 16, 80, 40),
+     (2, 65, 16, 2, 128, None), (1, 2, 32, 8, 64, None)],
+)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_matches_plain(cuda, b, s, h, hkv, hd, window, dtype, causal):
+    gen = torch.Generator(device=cuda).manual_seed(s * 7 + h)
+    q, k, v = (torch.randn(b, s, n, hd, generator=gen, device=cuda).to(dtype)
+               for n in (h, hkv, hkv))
+    reset_launches()
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = fa.flash_attention_ref(q, k, v, causal=causal, window=window)
+    tol = 3e-2 if dtype == torch.bfloat16 else 3e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_reads_strided_inputs(cuda, dtype):
+    """q, k, v as views into one fused projection, as strides and no copy,
+    and a T other than S (keys past the queries' positions masked)."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    qkv = torch.randn(2, 96, 8 + 2 * 2, 64, generator=gen, device=cuda).to(dtype)
+    q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
+    tol = 3e-2 if dtype == torch.bfloat16 else 3e-5
+    for kv_len in (96, 70):
+        got = fa.flash_attention(q, k[:, :kv_len], v[:, :kv_len])
+        want = fa.flash_attention_ref(q, k[:, :kv_len], v[:, :kv_len])
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_kernel_raises_on_what_it_does_not_take(cuda):
+    q = torch.zeros(1, 8, 4, 48, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention(q, q[:, :, :2], q[:, :, :2])
+    x = torch.zeros(1, 8, 4, 66, device=cuda)[..., 1:65]  # rows off the 4-value grid
+    with pytest.raises(ValueError, match="strides"):
+        fa.flash_attention(x, x[:, :, :2], x[:, :, :2])
+
+
+@pytest.mark.parametrize("arch", ["llama32_1b", "stablelm_3b"])
+def test_engine_through_the_kernel_matches_the_plain_path(cuda, arch):
+    """A reduced model served on the card: prefill logits and the engine's
+    tokens through the flash kernel agree with the plain attention path
+    (f32 weights), and the kernel ran once per layer per admission."""
+    cfg = cfgbase.get(arch).reduced()
+    params = TF.init_params(0, cfg, device=cuda)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32) for n in (5, 9, 17, 30)]
+    tokens = torch.from_numpy(np.stack([np.resize(p, 32) for p in prompts])).to(cuda)
+    logits = {f: SD.prefill(params, cfg, tokens, TF.init_cache(cfg, 4, 32, device=cuda),
+                            flash=f)[0] for f in (True, False)}
+    torch.testing.assert_close(logits[True], logits[False], rtol=1e-4, atol=1e-4)
+    out = {}
+    for flash in (True, False):
+        eng = Engine(params, cfg, slots=2, cache_len=32, flash=flash)
+        for p in prompts:
+            eng.submit(p, max_new=6)
+        reset_launches()
+        out[flash] = eng.run()
+        if flash:
+            assert LAUNCHES["flash_attention"] == cfg.num_layers * len(prompts)
+    assert all(np.array_equal(out[True][r], out[False][r]) for r in out[False])

@@ -206,7 +206,7 @@ def test_large_n_smoke_runs_its_sparse_spec(tmp_path):
     final = finals[ok]["final"]
     assert final["fused"] is True and final["backend"] == "sparse"
     assert np.isfinite(final["mean_acc"]) and final["mean_acc"] > 0.1
-    with pytest.raises(NotImplementedError, match="slice D"):
+    with pytest.raises(NotImplementedError, match="slice F"):
         runner.run_spec(specs[summary["failed"][0]], ResultsStore(str(tmp_path / "x.jsonl")),
                         device="cpu")
 

@@ -1,6 +1,8 @@
 """The port stands alone: no module of ``repro_torch`` (nor ``chip_smoke.py``)
 imports ``jax`` or anything of ``repro``, and every entry point asked for the
-default device raises instead of running on the CPU when there is no card."""
+default device raises instead of running on the CPU when there is no card:
+the DecAvg runner and trainer, and serving (model init, caches, the Engine,
+the serve CLI)."""
 
 import ast
 import pkgutil
@@ -13,12 +15,16 @@ import pytest
 import torch
 
 import repro_torch
+from repro_torch.configs import base as cfgbase
 from repro_torch.core.decavg import GossipEngine
 from repro_torch.data.loader import NodeLoader
 from repro_torch.device import resolve_device
 from repro_torch.experiments import runner, sweep
 from repro_torch.experiments.spec import ExperimentSpec
 from repro_torch.experiments.store import ResultsStore
+from repro_torch.launch import serve as serve_cli
+from repro_torch.models import transformer as TF
+from repro_torch.serve.engine import Engine
 from repro_torch.train.trainer import DecentralizedTrainer
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -79,6 +85,10 @@ def _cpu_loader(n=6):
     return NodeLoader(x, y, parts, batch_size=2, device="cpu")
 
 
+def _llm():
+    return cfgbase.get("llama3.2-1b").reduced()
+
+
 _ENTRY_POINTS = {
     "resolve_device": lambda tmp: resolve_device(None),
     "GossipEngine": lambda tmp: GossipEngine("ring:n=6"),
@@ -92,6 +102,11 @@ _ENTRY_POINTS = {
     "sweep_cli": lambda tmp: sweep.main(
         ["--preset", "smoke", "--store", str(tmp / "c.jsonl"), "--bench-out", "", "--quiet"]
     ),
+    "init_params": lambda tmp: TF.init_params(0, _llm()),
+    "init_cache": lambda tmp: TF.init_cache(_llm(), 2, 8),
+    # parameters the caller left on the CPU: the engine still wants the card
+    "Engine": lambda tmp: Engine(TF.init_params(0, _llm(), device="cpu"), _llm()),
+    "serve_cli": lambda tmp: serve_cli.main([]),
 }
 
 

@@ -94,9 +94,9 @@ def test_same_init_starts_every_node_equal(data):
 def test_compress_and_faults_are_not_ported(data):
     ds, parts = data
     loader = NodeLoader(ds.x_train, ds.y_train, parts, batch_size=BATCH, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice C"):
+    with pytest.raises(NotImplementedError, match="slice E"):
         DecentralizedTrainer("ba:m=2", loader, compress=0.1, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice C"):
+    with pytest.raises(NotImplementedError, match="slice E"):
         DecentralizedTrainer("ba:m=2", loader, faults="churn:p_leave=0.1", device="cpu")
 
 
@@ -146,10 +146,10 @@ def test_records_keyed_as_the_reference(tmp_path, spec):
 def test_runner_rejects_what_is_not_ported(tmp_path):
     store = ResultsStore(str(tmp_path / "r.jsonl"))
     faulted = ExperimentSpec("ring:n=6", faults="churn:p_leave=0.1", **TINY)
-    with pytest.raises(NotImplementedError, match="faults: slice C"):
+    with pytest.raises(NotImplementedError, match="faults: slice E"):
         runner.run_spec(faulted, store, device="cpu")
     lm = ExperimentSpec("ring:n=4", model={"kind": "lm"}, **TINY)
     out = runner.run_spec(lm, store, raise_on_error=False, device="cpu")
-    assert out["status"] == "failed" and "slice E" in out["error"]
+    assert out["status"] == "failed" and "slice D" in out["error"]
     with pytest.raises(NotImplementedError, match="processes"):
         runner.run_sweep([lm], str(tmp_path / "s.jsonl"), processes=2, device="cpu")

@@ -1,7 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (src/repro_torch) on one CUDA card, end to end.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--baseline DIR]
+
+``--baseline DIR`` names a directory holding other versions of
+gossip_mix.cu and flash_attention.cu (an earlier commit's, say): phases 4
+and 11 then also time them, in turns with the current ones (baseline,
+current, current, baseline), on the same inputs in the same process.
 
 Phases, in order; any failure exits non-zero, and no phase catches and
 carries on:
@@ -9,14 +14,19 @@ carries on:
 1. device   -- the card's name, and its name and power limit from nvidia-smi;
 2. build    -- compile every CUDA source of the port (gossip_mix.cu,
                sparse_gossip.cu and flash_attention.cu), one nvcc each,
-               started together;
+               started together, and print ptxas's registers, spills and
+               shared memory of each kernel;
 3. kernel   -- the gossip_mix kernel against its plain version on the card, at
                the main path's 8 leaf shapes, a ragged shape, (1, 1) and an
                N=300 ring (whole zero W tiles), in f32 (3e-5) and bf16 (2e-2),
                with tile skipping on and off;
-4. times    -- CUDA-event times of one gossip round's 8 launches: kernel,
-               plain version, torch.matmul, and the least time the card
-               could take for the same work;
+4. times    -- times of one gossip round's 8 launches: kernel, plain
+               version, torch.matmul, and the least time the card could
+               take for the same work (bytes; the f32-FMA and 3xTF32
+               operation counts beside). Each is timed twice: eagerly (CUDA
+               events around launches from Python, the host's launch cost
+               included) and on the device alone (CUDA events around the
+               replay of a CUDA graph of the same launches);
 5. main     -- the paper's DecAvg run through run_spec at full width (BA
                N=100, the 784-512-256-128-10 MLP, backend "pallas"): records
                stream, accuracy is finite and above chance, the kernel ran
@@ -46,9 +56,12 @@ carries on:
                engine's llama3.2-1b shapes (1, S, 32, 8, 64) for S = 128 to
                1024 and (4, 2048, 32, 8, 64), hd 80 and 128, ragged S=1001,
                and S=2;
-11. ftimes   -- CUDA-event times at (1, 1024, 32, 8, 64) in bf16: the kernel,
-               its plain version and scaled_dot_product_attention, beside
-               the least time the card could take;
+11. ftimes   -- times at (1, 1024, 32, 8, 64) in bf16, eagerly and on the
+               device alone, as in phase 4: the kernel, its plain version
+               and scaled_dot_product_attention, beside the least time the
+               card could take; the kernel against scaled_dot_product_attention
+               at the engine's other admission buckets, S = 128, 256 and 512;
+               and the host's time to launch one call;
 12. serve    -- llama3.2-1b at full width (16 layers, d_model 2048, bf16,
                weights from seed 0) through Engine(slots=4, cache_len=1024):
                8 requests of 37 to 1000 prompt tokens, 16 new tokens each,
@@ -72,6 +85,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -86,6 +100,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
+TF32_FLOP_PER_S = 495e12  # H100 SXM TF32 tensor cores, dense
 MLP_DIMS = (784, 512, 256, 128, 10)
 # (N, D) of each flattened leaf of the paper MLP, in the trainer's leaf order.
 LEAF_D = tuple(d for a, b in zip(MLP_DIMS[:-1], MLP_DIMS[1:]) for d in (b, a * b))
@@ -139,6 +154,87 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int = 20, rounds: int = 5) -> float:
+    """Mean milliseconds of ``fn()`` on the device alone: ``reps`` calls
+    captured in one CUDA graph, replayed ``rounds`` times between CUDA
+    events, so the host's launch cost between kernels does not count."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the default stream before capture
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(rounds):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (rounds * reps)
+
+
+def in_turns(module, baseline, fn, timer) -> tuple[list[float], list[float]]:
+    """Times of ``fn`` through ``module``'s kernel library and, when a
+    baseline library is given, through that one too, in the order baseline,
+    current, current, baseline. Returns (current times, baseline times)."""
+    if baseline is None:
+        return [timer(fn)], []
+    current = module._lib
+    got = {"current": [], "baseline": []}
+    try:
+        for which in ("baseline", "current", "current", "baseline"):
+            module._lib = current if which == "current" else baseline
+            got[which].append(timer(fn))
+    finally:
+        module._lib = current
+    return got["current"], got["baseline"]
+
+
+def load_baseline(directory: Path | None):
+    """The baseline versions of gossip_mix.cu and flash_attention.cu in
+    ``directory``, built and loaded like the current ones (None, None
+    without a directory)."""
+    if directory is None:
+        return None, None
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gossip_mix as gm
+    from repro_torch.kernels.nvcc import build_library, load_library
+
+    build_dir = ROOT / "src" / "repro_torch" / "kernels" / "build" / "baseline"
+    libs = []
+    for module, names in ((gm, ("gossip_mix_f32", "gossip_mix_bf16")),
+                          (fa, ("flash_attention_fwd",))):
+        current = module._library()
+        path = build_library(directory / module.SOURCE.name, build_dir)
+        libs.append(load_library(path, {n: getattr(current, n).argtypes for n in names}))
+    return libs
+
+
+def kernel_resources(report: list[str]) -> list[str]:
+    """One line per kernel from ptxas's report: the kernel and its template
+    arguments (as mangled), registers, spills and static shared memory."""
+    out = []
+    for line in report:
+        entry = re.search(r"Compiling entry function .*?\d((?:gossip|flash|ell|blocked)\w*?_kernel)"
+                          r"(?:I(\w*?)E)?E*v", line)
+        if entry:
+            out.append(f"{entry.group(1)}<{entry.group(2) or ''}>:")
+        elif out:
+            out[-1] += " " + line.rstrip(".")
+    return out
+
+
+def spread(times: list[float]) -> str:
+    return "-".join(f"{t:.4f}" for t in sorted(times)) if times else "n/a"
+
+
 def main_path_w(dev):
     """The main path's mixing matrix: decavg weights over the BA graph with
     the hub_focused partition's data sizes, exactly as the runner builds it."""
@@ -173,6 +269,13 @@ def block_sparse_w(n: int, gen: torch.Generator, dev) -> torch.Tensor:
 
 
 def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--baseline", type=Path, default=None,
+                    help="directory with other versions of gossip_mix.cu and flash_attention.cu "
+                         "to time in turns with the current ones")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing to run", file=sys.stderr)
         return 1
@@ -184,6 +287,7 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gossip_mix as gm
     from repro_torch.kernels import sparse_gossip as sg
+    from repro_torch.kernels.nvcc import ptxas_report
     from repro_torch.train.trainer import DecentralizedTrainer
 
     dev = torch.device("cuda")
@@ -206,6 +310,12 @@ def main() -> int:
     fa._library()
     phase("build", f"{', '.join(lib.name for lib in libs)} built and loaded in "
                    f"{time.perf_counter() - t0:.2f} s")
+    for lib in libs:
+        for line in kernel_resources(ptxas_report(lib)):
+            phase("build", line)
+    base_gm, base_fa = load_baseline(args.baseline)
+    if args.baseline is not None:
+        phase("build", f"baseline sources from {args.baseline} built and loaded")
 
     # 3. kernel against plain, on the card
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -232,11 +342,18 @@ def main() -> int:
                 if name.startswith("leaf") and dtype == torch.float32:
                     main_err = max(main_err, err)
 
-    # 4. times of one gossip round at the main path's shapes (f32)
+    # 4. times of one gossip round at the main path's shapes (f32), eagerly
+    # (host launch included) and on the device alone (graph replay)
     leaves = [torch.rand(100, d, generator=gen, device=dev) * 2 - 1 for d in LEAF_D]
-    t_kernel = time_ms(lambda: [gm.gossip_mix(w_main, p) for p in leaves])
-    t_plain = time_ms(lambda: [gm.gossip_mix_ref(w_main, p) for p in leaves])
-    t_lib = time_ms(lambda: [torch.matmul(w_main, p) for p in leaves])
+    kernel_round = lambda: [gm.gossip_mix(w_main, p) for p in leaves]  # noqa: E731
+    plain_round = lambda: [gm.gossip_mix_ref(w_main, p) for p in leaves]  # noqa: E731
+    lib_round = lambda: [torch.matmul(w_main, p) for p in leaves]  # noqa: E731
+    round_dev = lambda fn: device_ms(fn, reps=5)  # noqa: E731
+    eager_k, eager_base = in_turns(gm, base_gm, kernel_round, time_ms)
+    dev_k, dev_base = in_turns(gm, base_gm, kernel_round, round_dev)
+    t_kernel = sum(dev_k) / len(dev_k)
+    t_plain, t_plain_e = round_dev(plain_round), time_ms(plain_round)
+    t_lib, t_lib_e = round_dev(lib_round), time_ms(lib_round)
     nnz = int((w_main != 0).sum())
     n = w_main.shape[0]
     d_total = sum(LEAF_D)
@@ -245,21 +362,28 @@ def main() -> int:
     t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S * 1e3, ops / F32_FLOP_PER_S * 1e3
     bound = max(t_bytes, t_ops)
     dense_ops_ms = 2 * n * n * d_total / F32_FLOP_PER_S * 1e3
+    tf32x3_ops_ms = 3 * 2 * n * n * d_total / TF32_FLOP_PER_S * 1e3
     for d, p in zip(LEAF_D, leaves):
-        tk = time_ms(lambda p=p: gm.gossip_mix(w_main, p))
-        tl = time_ms(lambda p=p: torch.matmul(w_main, p))
+        tk = device_ms(lambda p=p: gm.gossip_mix(w_main, p))
+        tl = device_ms(lambda p=p: torch.matmul(w_main, p))
         leaf_bound = 4 * 2 * n * d / HBM_BYTES_PER_S * 1e3
-        phase("times", f"leaf(100,{d}): kernel {tk:.4f} ms, torch.matmul {tl:.4f} ms, "
+        phase("times", f"leaf(100,{d}) on the device: kernel {tk:.4f} ms, torch.matmul {tl:.4f} ms, "
                        f"bytes bound {leaf_bound:.4f} ms")
     w_ring = ring_w(300, dev)
     p_ring = torch.rand(300, 401408, generator=gen, device=dev)
     t_skip = time_ms(lambda: gm.gossip_mix(w_ring, p_ring, block_sparse=True))
     t_noskip = time_ms(lambda: gm.gossip_mix(w_ring, p_ring, block_sparse=False))
     phase("times", f"ring(300,401408): skip on {t_skip:.4f} ms, skip off {t_noskip:.4f} ms")
-    phase("times", f"gossip round (8 leaves, {n * d_total} f32 values): kernel {t_kernel:.4f} ms, "
-                   f"plain {t_plain:.4f} ms, torch.matmul {t_lib:.4f} ms; bound {bound:.4f} ms "
-                   f"(bytes {t_bytes:.4f} ms, nnz(W)={nnz} ops {t_ops:.4f} ms, "
-                   f"dense ops {dense_ops_ms:.4f} ms)")
+    phase("times", f"gossip round (8 leaves, {n * d_total} f32 values) on the device: kernel "
+                   f"{t_kernel:.4f} ms, plain {t_plain:.4f} ms, torch.matmul {t_lib:.4f} ms; "
+                   f"eagerly: kernel {spread(eager_k)} ms, plain {t_plain_e:.4f} ms, torch.matmul "
+                   f"{t_lib_e:.4f} ms; bound {bound:.4f} ms (bytes {t_bytes:.4f} ms, nnz(W)={nnz} "
+                   f"ops {t_ops:.4f} ms, dense f32-FMA ops {dense_ops_ms:.4f} ms, dense 3xTF32 ops "
+                   f"{tf32x3_ops_ms:.4f} ms)")
+    if dev_base:
+        phase("times", f"gossip round in turns (baseline, current, current, baseline): on the "
+                       f"device baseline {spread(dev_base)} ms, current {spread(dev_k)} ms; eagerly "
+                       f"baseline {spread(eager_base)} ms, current {spread(eager_k)} ms")
 
     # 5. the main path, through the entry point a user calls
     with tempfile.TemporaryDirectory() as tmp:
@@ -355,7 +479,7 @@ def main() -> int:
 
     # 10-13. slice C: the flash-attention kernel and serving
     flash_err = flash_kernel_checks(dev, gen)
-    flash_times = flash_attention_times(dev, gen)
+    flash_times = flash_attention_times(dev, gen, base_fa)
     flash_launches = serve_main_path(dev)
     serve_cli()
     path_launches = {**large_n_launches, "gossip_mix": launches["gossip_mix"],
@@ -657,20 +781,31 @@ def flash_kernel_checks(dev, gen) -> float:
     return engine_err
 
 
-def flash_attention_times(dev, gen) -> dict:
+def flash_attention_times(dev, gen, baseline=None) -> dict:
     """Phase 11: one causal prefill attention at the engine's largest
-    admission, (1, 1024, 32, 8, 64) bf16."""
+    admission, (1, 1024, 32, 8, 64) bf16, eagerly and on the device alone;
+    then the kernel against scaled_dot_product_attention at the engine's
+    other admission buckets; then the host's time to launch one call."""
     from repro_torch.kernels import flash_attention as fa
 
+    def inputs(s):
+        q = torch.randn(1, s, 32, 64, generator=gen, device=dev).bfloat16()
+        k = torch.randn(1, s, 8, 64, generator=gen, device=dev).bfloat16()
+        v = torch.randn(1, s, 8, 64, generator=gen, device=dev).bfloat16()
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # SDPA's (B, H, S, hd) views
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+        return q, k, v, sdpa
+
     b, s, h, hkv, hd = 1, 1024, 32, 8, 64
-    q = torch.randn(b, s, h, hd, generator=gen, device=dev).bfloat16()
-    k = torch.randn(b, s, hkv, hd, generator=gen, device=dev).bfloat16()
-    v = torch.randn(b, s, hkv, hd, generator=gen, device=dev).bfloat16()
-    t_k = time_ms(lambda: fa.flash_attention(q, k, v))
-    t_p = time_ms(lambda: fa.flash_attention_ref(q, k, v))
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # SDPA's (B, H, S, hd) views
-    t_lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True))
+    q, k, v, sdpa = inputs(s)
+    kernel = lambda: fa.flash_attention(q, k, v)  # noqa: E731
+    plain = lambda: fa.flash_attention_ref(q, k, v)  # noqa: E731
+    eager_k, eager_base = in_turns(fa, baseline, kernel, time_ms)
+    dev_k, dev_base = in_turns(fa, baseline, kernel, device_ms)
+    t_k = sum(dev_k) / len(dev_k)
+    t_p, t_p_e = device_ms(plain, reps=5), time_ms(plain)
+    t_lib, t_lib_e = device_ms(sdpa), time_ms(sdpa)
     # Each input read once, the output written once; the causal pairs this
     # run attends (S(S+1)/2 a head), 2 FLOP per multiply-add in QK^T and PV.
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
@@ -678,9 +813,34 @@ def flash_attention_times(dev, gen) -> dict:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
     times = {"ms": t_k, "plain_ms": t_p, "bound_ms": max(t_bytes, t_ops),
              "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": t_lib}
-    phase("ftimes", f"(1,1024,32,8,64) bf16 causal: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
-                    f"scaled_dot_product_attention {t_lib:.4f} ms; bound {times['bound_ms']:.4f} ms "
-                    f"(bytes {t_bytes:.4f} ms, {flops / 1e9:.3f} GFLOP {t_ops:.4f} ms)")
+    phase("ftimes", f"(1,1024,32,8,64) bf16 causal on the device: kernel {spread(dev_k)} ms, plain "
+                    f"{t_p:.4f} ms, scaled_dot_product_attention {t_lib:.4f} ms; eagerly: kernel "
+                    f"{spread(eager_k)} ms, plain {t_p_e:.4f} ms, scaled_dot_product_attention "
+                    f"{t_lib_e:.4f} ms; bound {times['bound_ms']:.4f} ms (bytes {t_bytes:.4f} ms, "
+                    f"{flops / 1e9:.3f} GFLOP {t_ops:.4f} ms)")
+    if dev_base:
+        phase("ftimes", f"(1,1024,32,8,64) in turns (baseline, current, current, baseline): on "
+                        f"the device baseline {spread(dev_base)} ms, current {spread(dev_k)} ms; "
+                        f"eagerly baseline {spread(eager_base)} ms, current {spread(eager_k)} ms")
+    for s_bucket in (128, 256, 512):
+        q, k, v, sdpa = inputs(s_bucket)
+        kernel = lambda: fa.flash_attention(q, k, v)  # noqa: E731
+        dev_b, dev_b_base = in_turns(fa, baseline, kernel, device_ms)
+        bound = 4 * hd * h * s_bucket * (s_bucket + 1) // 2 / BF16_FLOP_PER_S * 1e3
+        phase("ftimes", f"(1,{s_bucket},32,8,64) bf16 causal on the device: kernel {spread(dev_b)} "
+                        f"ms, scaled_dot_product_attention {device_ms(sdpa):.4f} ms; eagerly: kernel "
+                        f"{time_ms(kernel):.4f} ms, scaled_dot_product_attention "
+                        f"{time_ms(sdpa):.4f} ms; bound {bound:.4f} ms (operations)"
+                        + (f"; baseline on the device {spread(dev_b_base)} ms" if dev_b_base else ""))
+    # The host's share: the wrapper's checks, the output's allocation and the
+    # ctypes launch, timed on the host clock over calls that only enqueue.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        fa.flash_attention(q, k, v)
+    host_us = (time.perf_counter() - t0) / 20 * 1e6
+    torch.cuda.synchronize()
+    phase("ftimes", f"host time to launch one flash_attention call (1,512,32,8,64): {host_us:.1f} us")
     return times
 
 

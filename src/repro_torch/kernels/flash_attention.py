@@ -109,11 +109,11 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int | None
 
 
 def _aligned(x: torch.Tensor) -> bool:
-    """The kernel moves 4 values of a row at a time: the last stride is 1 and
-    the others, and the start, are whole multiples of 4 values."""
-    st = x.stride()
-    return (st[3] == 1 and all(s % 4 == 0 for s in st[:3])
-            and x.data_ptr() % (4 * x.element_size()) == 0)
+    """The kernel moves 16 bytes of a row at a time (4 f32 or 8 bf16 values):
+    the last stride is 1, and the other strides and the start are whole
+    multiples of 16 bytes."""
+    st, size = x.stride(), x.element_size()
+    return st[3] == 1 and all(s * size % 16 == 0 for s in st[:3]) and x.data_ptr() % 16 == 0
 
 
 def flash_attention(
@@ -129,8 +129,9 @@ def flash_attention(
 
     q: (B, S, H, hd); k, v: (B, T, Hkv, hd), f32 or bf16; query head ``h``
     reads KV head ``h // (H // Hkv)``. CPU tensors take ``flash_attention_ref``.
-    On the card hd must be one of ``HEAD_DIMS`` and every row contiguous with
-    4-value-aligned strides (as ``attention_layer`` produces them).
+    On the card hd must be one of ``HEAD_DIMS`` and every row contiguous, with
+    strides and starts a multiple of 16 bytes (as ``attention_layer``
+    produces them at every hd of ``HEAD_DIMS``).
     """
     _check(q, k, v, window)
     if q.device.type == "cpu":
@@ -141,7 +142,7 @@ def flash_attention(
         raise ValueError(f"flash_attention's kernel takes head_dim in {HEAD_DIMS}, got {hd}")
     if not all(_aligned(x) for x in (q, k, v)):
         raise ValueError("flash_attention wants rows of hd contiguous values with strides "
-                         "(and starts) a multiple of 4 values; got strides "
+                         "(and starts) a multiple of 16 bytes; got strides "
                          f"{q.stride()}, {k.stride()}, {v.stride()}")
     if b * h > 65535 or max(s, t) >= 2**31 - 64:
         raise ValueError(f"flash_attention: B*H={b * h} or S={s}, T={t} out of the kernel's range")

@@ -17,11 +17,11 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "build_library", "load_library"]
+__all__ = ["NVCC_FLAGS", "build_library", "load_library", "ptxas_report"]
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
@@ -37,7 +37,9 @@ def _nvcc() -> str:
 
 def build_library(source: Path, build_dir: Path) -> Path:
     """Compile ``source`` into ``build_dir`` (cached by source hash) and
-    return the library's path. Raises if ``nvcc`` is missing or fails."""
+    return the library's path. Raises if ``nvcc`` is missing or fails.
+    ``ptxas``'s report of each kernel's registers, spills and shared memory
+    is kept beside the library (``ptxas_report``)."""
     digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
     out = build_dir / f"lib{source.stem}_{digest.hexdigest()[:16]}.so"
     if out.exists():
@@ -54,11 +56,23 @@ def build_library(source: Path, build_dir: Path) -> Path:
         )
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed on {source.name} ({res.returncode}):\n{res.stderr}")
+        out.with_suffix(".ptxas.txt").write_text(res.stderr)
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
     return out
+
+
+def ptxas_report(library: Path) -> list[str]:
+    """``ptxas -v``'s lines for a library built by ``build_library``: per
+    kernel, its name, then its registers, spills and shared memory."""
+    log = library.with_suffix(".ptxas.txt")
+    if not log.exists():
+        return []
+    keep = ("Compiling entry", "Used ", "spill")
+    return [line.replace("ptxas info    : ", "").strip() for line in log.read_text().splitlines()
+            if any(k in line for k in keep)]
 
 
 def load_library(path: Path, signatures: dict[str, list]) -> ctypes.CDLL:

@@ -67,6 +67,46 @@ def test_kernel_matches_plain(cuda, n, d, dtype, block_sparse):
     torch.testing.assert_close(got.float(), gm.gossip_mix_ref(w, p).float(), **_tol(dtype))
 
 
+def _w_mma_tiles(n: int, seed: int) -> torch.Tensor:
+    """Row-stochastic W whose 16 x 8 tiles (the kernel's MMA tiles, which it
+    skips when all zero) are dead in bands: the lower-left quarter, and rows
+    16-31 outside the diagonal band, so a live row tile has dead k-steps."""
+    w = _w(n, seed)
+    if n > 32:
+        band = w[16:32].clone()
+        w[16:32] = 0.0
+        w[16:32, 8:40] = band[:, 8:40]
+        w[16:32] /= w[16:32].sum(dim=1, keepdim=True)
+    return w
+
+
+@pytest.mark.parametrize("n", [1, 100, 112, 130, 300, 511])
+@pytest.mark.parametrize("d", [1, 10, 513, 401408])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block_sparse", [True, False])
+def test_kernel_matches_plain_at_edges(cuda, n, d, dtype, block_sparse):
+    """Ragged N around the 16-row MMA tile and the 128-row W chunk, D down to
+    1 and past 2^18 columns, with dead MMA tiles skipped or not."""
+    w = _w_mma_tiles(n, seed=n).to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(n * 7 + d)
+    p = (torch.rand(n, d, generator=gen, device=cuda) * 2 - 1).to(dtype)
+    reset_launches()
+    got = gm.gossip_mix(w, p, block_sparse=block_sparse)
+    torch.cuda.synchronize()
+    assert LAUNCHES["gossip_mix"] == 1
+    assert got.dtype == dtype and got.shape == (n, d)
+    torch.testing.assert_close(got.float(), gm.gossip_mix_ref(w, p).float(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_skipping_dead_tiles_changes_no_bit(cuda, dtype):
+    w = _w_mma_tiles(100, seed=3).to(cuda)
+    p = (torch.rand(100, 4096, generator=torch.Generator(device=cuda).manual_seed(3),
+                    device=cuda) * 2 - 1).to(dtype)
+    assert torch.equal(gm.gossip_mix(w, p, block_sparse=True),
+                       gm.gossip_mix(w, p, block_sparse=False))
+
+
 def test_kernel_reads_a_non_contiguous_leaf_through_reshape(cuda):
     w = _w(16, seed=0).to(cuda)
     leaf = torch.rand(16, 9, 7, device=cuda).transpose(1, 2)  # not contiguous
@@ -277,6 +317,34 @@ def test_flash_kernel_reads_strided_inputs(cuda, dtype):
         torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize(
+    "s,t,h,hkv,hd,window",
+    [(1, 1, 8, 8, 64, None), (63, 63, 12, 4, 64, None), (64, 64, 8, 1, 32, None),
+     (65, 65, 24, 3, 64, None), (1001, 1001, 16, 2, 128, None), (1001, 1001, 32, 4, 80, 200),
+     (65, 130, 12, 4, 64, None), (130, 65, 8, 2, 32, None), (64, 64, 16, 8, 64, 16),
+     (200, 200, 40, 5, 80, None), (100, 100, 18, 3, 128, None), (96, 96, 12, 2, 32, 33),
+     (1, 64, 32, 8, 64, None)],
+)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_edges(cuda, s, t, h, hkv, hd, window, dtype, causal):
+    """The tiles the bf16 design masks (the diagonal, the window edge, ragged
+    S and T) at S = 1, 63, 64, 65 and 1001, S != T, GQA groups 1 to 8,
+    including groups that leave warpgroups of a block without a head (3, 5
+    and 6), at every hd."""
+    gen = torch.Generator(device=cuda).manual_seed(s * 31 + t + h)
+    q = torch.randn(2, s, h, hd, generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn(2, t, hkv, hd, generator=gen, device=cuda).to(dtype) for _ in range(2))
+    reset_launches()
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = fa.flash_attention_ref(q, k, v, causal=causal, window=window)
+    tol = 3e-2 if dtype == torch.bfloat16 else 3e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
 def test_flash_kernel_raises_on_what_it_does_not_take(cuda):
     q = torch.zeros(1, 8, 4, 48, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
@@ -284,6 +352,13 @@ def test_flash_kernel_raises_on_what_it_does_not_take(cuda):
     x = torch.zeros(1, 8, 4, 66, device=cuda)[..., 1:65]  # rows off the 4-value grid
     with pytest.raises(ValueError, match="strides"):
         fa.flash_attention(x, x[:, :, :2], x[:, :, :2])
+    # bf16 needs 16 bytes too: 8 values, not 4.
+    y = torch.zeros(1, 8, 4, 72, device=cuda, dtype=torch.bfloat16)[..., 4:68]
+    with pytest.raises(ValueError, match="strides"):
+        fa.flash_attention(y, y[:, :, :2], y[:, :, :2])
+    z = torch.zeros(1, 8, 4, 68, device=cuda, dtype=torch.bfloat16)[..., :64]  # 136-byte rows
+    with pytest.raises(ValueError, match="strides"):
+        fa.flash_attention(z, z[:, :, :2], z[:, :, :2])
 
 
 @pytest.mark.parametrize("arch", ["llama32_1b", "stablelm_3b"])

@@ -4,9 +4,10 @@
     python3 chip_smoke.py [--baseline DIR]
 
 ``--baseline DIR`` names a directory holding other versions of
-gossip_mix.cu and flash_attention.cu (an earlier commit's, say): phases 4
-and 11 then also time them, in turns with the current ones (baseline,
-current, current, baseline), on the same inputs in the same process.
+gossip_mix.cu, sparse_gossip.cu and flash_attention.cu (an earlier commit's,
+say): phases 4, 8 and 11 then also time them, in turns with the current ones
+(baseline, current, current, baseline), on the same inputs in the same
+process.
 
 Phases, in order; any failure exits non-zero, and no phase catches and
 carries on:
@@ -15,7 +16,8 @@ carries on:
 2. build    -- compile every CUDA source of the port (gossip_mix.cu,
                sparse_gossip.cu and flash_attention.cu), one nvcc each,
                started together, and print ptxas's registers, spills and
-               shared memory of each kernel;
+               shared memory of each kernel, and the sparse kernels'
+               dynamic shared memory and blocks a SM;
 3. kernel   -- the gossip_mix kernel against its plain version on the card, at
                the main path's 8 leaf shapes, a ragged shape, (1, 1) and an
                N=300 ring (whole zero W tiles), in f32 (3e-5) and bf16 (2e-2),
@@ -37,11 +39,18 @@ carries on:
 7. sparse   -- both sparse kernels against their plain versions, in f32
                (3e-5) and bf16 (2e-2): the three large_n layouts (ws, torus,
                caveman at N=1024) at the 4 leaf widths of the 784-64-10
-               MLP, a ragged N=1001, D=1, and a period stack from
+               MLP, a ragged N=1001, D=1, graphs whose windows lap the
+               staging ring (er p=0.02, ws rewired at beta=1), a star (one
+               source row in every window), and a period stack from
                stack_block_ell with unequal tile counts;
-8. stimes   -- CUDA-event times of one large_n gossip round (4 leaves) for
-               each sparse kernel, its plain version and torch.sparse.mm on
-               a CSR W, beside the least time the card could take;
+8. stimes   -- times of one large_n gossip round (4 leaves, f32) and of its
+               widest leaf (1024 x 50176) for each layout: each sparse
+               kernel and torch.sparse.mm on a CSR W on the device alone
+               (CUDA-graph replay) and eagerly, the plain version eagerly,
+               beside the least time the card could take, a plain copy of
+               the widest leaf (clone), and the source rows read a column
+               slab (this design's and a design's that reads each row per
+               destination row or 8-row block);
 9. large_n  -- the large_n preset's three N=1024 hub_focused runs through
                run_spec on backend sparse_pallas: fused, the blocked kernel
                launched 4 times per gossip round, records finite; the same
@@ -81,6 +90,7 @@ the repo beside it, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import math
@@ -198,23 +208,26 @@ def in_turns(module, baseline, fn, timer) -> tuple[list[float], list[float]]:
 
 
 def load_baseline(directory: Path | None):
-    """The baseline versions of gossip_mix.cu and flash_attention.cu in
-    ``directory``, built and loaded like the current ones (None, None
-    without a directory)."""
+    """The baseline versions of gossip_mix.cu, sparse_gossip.cu and
+    flash_attention.cu in ``directory``, built and loaded like the current
+    ones (three Nones without a directory)."""
     if directory is None:
-        return None, None
+        return None, None, None
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gossip_mix as gm
+    from repro_torch.kernels import sparse_gossip as sg
     from repro_torch.kernels.nvcc import build_library, load_library
 
     build_dir = ROOT / "src" / "repro_torch" / "kernels" / "build" / "baseline"
+    sources = [directory / m.SOURCE.name for m in (gm, sg, fa)]
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        paths = list(pool.map(lambda src: build_library(src, build_dir), sources))
     libs = []
-    for module, names in ((gm, ("gossip_mix_f32", "gossip_mix_bf16")),
-                          (fa, ("flash_attention_fwd",))):
+    for module, names, path in zip((gm, fa), (("gossip_mix_f32", "gossip_mix_bf16"),
+                                              ("flash_attention_fwd",)), paths[::2]):
         current = module._library()
-        path = build_library(directory / module.SOURCE.name, build_dir)
         libs.append(load_library(path, {n: getattr(current, n).argtypes for n in names}))
-    return libs
+    return libs[0], sg.open_library(paths[1]), libs[1]
 
 
 def kernel_resources(report: list[str]) -> list[str]:
@@ -222,12 +235,31 @@ def kernel_resources(report: list[str]) -> list[str]:
     arguments (as mangled), registers, spills and static shared memory."""
     out = []
     for line in report:
-        entry = re.search(r"Compiling entry function .*?\d((?:gossip|flash|ell|blocked)\w*?_kernel)"
+        entry = re.search(r"Compiling entry function .*?\d((?:gossip|flash|ell|blocked|window)\w*?_kernel)"
                           r"(?:I(\w*?)E)?E*v", line)
         if entry:
             out.append(f"{entry.group(1)}<{entry.group(2) or ''}>:")
         elif out:
             out[-1] += " " + line.rstrip(".")
+    return out
+
+
+def sparse_occupancy(lib) -> list[str]:
+    """The sparse kernels' dynamic shared memory and blocks a SM, as the
+    library recorded them when it was loaded."""
+    fn = lib.sparse_gossip_occupancy
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.restype = ctypes.c_int
+    out = []
+    for blocked in (0, 1):
+        for bf16 in (0, 1):
+            for bulk in (1, 0):
+                smem, blocks = ctypes.c_int(), ctypes.c_int()
+                if fn(blocked, bf16, bulk, ctypes.byref(smem), ctypes.byref(blocks)) != 0:
+                    fail("sparse_gossip_occupancy failed")
+                out.append(f"window_kernel<{'blocked' if blocked else 'ell'}, "
+                           f"{'bf16' if bf16 else 'f32'}, {'bulk' if bulk else 'loads'}>: "
+                           f"{smem.value} bytes dynamic shared memory, {blocks.value} blocks a SM")
     return out
 
 
@@ -273,8 +305,8 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", type=Path, default=None,
-                    help="directory with other versions of gossip_mix.cu and flash_attention.cu "
-                         "to time in turns with the current ones")
+                    help="directory with other versions of gossip_mix.cu, sparse_gossip.cu and "
+                         "flash_attention.cu to time in turns with the current ones")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing to run", file=sys.stderr)
@@ -313,7 +345,9 @@ def main() -> int:
     for lib in libs:
         for line in kernel_resources(ptxas_report(lib)):
             phase("build", line)
-    base_gm, base_fa = load_baseline(args.baseline)
+    for line in sparse_occupancy(sg.load()):
+        phase("build", line)
+    base_gm, base_sg, base_fa = load_baseline(args.baseline)
     if args.baseline is not None:
         phase("build", f"baseline sources from {args.baseline} built and loaded")
 
@@ -474,7 +508,7 @@ def main() -> int:
 
     # 7-9. slice B: the sparse kernels and the large-N path
     sparse_err = sparse_kernel_checks(dev, gen)
-    sparse_times = sparse_round_times(dev, gen)
+    sparse_times = sparse_round_times(dev, gen, base_sg)
     large_n_launches = large_n_main_path(dev, kind)
 
     # 10-13. slice C: the flash-attention kernel and serving
@@ -537,7 +571,8 @@ def sparse_kernel_checks(dev, gen) -> dict[str, float]:
     from repro_torch.kernels import sparse_gossip as sg
 
     cases = [(spec, d) for spec in LARGE_N_TOPOLOGIES for d in LARGE_N_LEAF_D]
-    cases += [("ring:n=1001", 513), ("ring:n=1001", 1), ("ws:n=1024,k=8,beta=0.1", 1)]
+    cases += [("ring:n=1001", 513), ("ring:n=1001", 1), ("ws:n=1024,k=8,beta=0.1", 1),
+              ("er:n=1024,p=0.02", 640), ("ws:n=1024,k=8,beta=1.0", 640), ("star:n=1024", 64)]
     errs = {"sparse_gossip_blocked": 0.0, "sparse_gossip": 0.0}
     layouts = {}
     for spec, d in cases:
@@ -575,34 +610,69 @@ def sparse_kernel_checks(dev, gen) -> dict[str, float]:
     return errs
 
 
-def sparse_round_times(dev, gen) -> dict[str, dict]:
-    """Phase 8: one large_n gossip round (4 leaves, f32) per layout; the ws
-    round (the widest rows) is the one the kernels line reports."""
+def sparse_round_times(dev, gen, baseline=None) -> dict[str, dict]:
+    """Phase 8: one large_n gossip round (4 leaves, f32) and its widest leaf
+    per layout, each sparse kernel on the device alone and eagerly (in turns
+    with the baseline library when one is given), beside the plain version,
+    torch.sparse.mm, the bound and the source rows read a slab. The ws round
+    on the device alone is the one the kernels line reports."""
     from repro_torch.core import sparse
+    from repro_torch.kernels import sparse_gossip as sg
 
     out = {}
-    d_total = sum(LARGE_N_LEAF_D)
+    d_total, d_wide = sum(LARGE_N_LEAF_D), max(LARGE_N_LEAF_D)
+    round_dev = lambda fn: device_ms(fn, reps=5)  # noqa: E731
     for spec in LARGE_N_TOPOLOGIES:
         kernels, csr = sparse_layouts(spec, dev)
         n = csr.shape[0]
         leaves = [torch.rand(n, d, generator=gen, device=dev) * 2 - 1 for d in LARGE_N_LEAF_D]
+        wide = leaves[LARGE_N_LEAF_D.index(d_wide)]
         w_csr = torch.as_tensor(sparse.csr_to_dense(csr)).to_sparse_csr().to(dev)
-        t_lib = time_ms(lambda: [torch.sparse.mm(w_csr, p) for p in leaves])
+        lib_round = lambda: [torch.sparse.mm(w_csr, p) for p in leaves]  # noqa: E731
+        t_lib, t_lib_e = round_dev(lib_round), time_ms(lib_round)
+        t_lib_wide = device_ms(lambda: torch.sparse.mm(w_csr, wide))
+        t_copy_wide = device_ms(lambda: wide.clone())  # the same bytes read and written
+        t_ops = 2 * csr.nnz * d_total / F32_FLOP_PER_S * 1e3
         for name, (fn, ref, idx, val) in kernels.items():
-            t_k = time_ms(lambda: [fn(idx, val, p) for p in leaves])
+            blocked = name == "sparse_gossip_blocked"
+            kernel_round = lambda: [fn(idx, val, p) for p in leaves]  # noqa: E731
+            dev_k, dev_base = in_turns(sg, baseline, kernel_round, round_dev)
+            eager_k, eager_base = in_turns(sg, baseline, kernel_round, time_ms)
+            wide_k, wide_base = in_turns(sg, baseline, lambda: fn(idx, val, wide), device_ms)
+            t_k = sum(dev_k) / len(dev_k)
             t_p = time_ms(lambda: [ref(idx, val, p) for p in leaves], reps=5, warmup=1)
             # Each input read once (P, and the layout once a leaf), each output
             # written once; the multiply-adds this W needs: 2 per entry per column.
             layout_bytes = idx.numel() * idx.element_size() + val.numel() * val.element_size()
-            nbytes = 4 * 2 * n * d_total + len(LARGE_N_LEAF_D) * layout_bytes
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = 2 * csr.nnz * d_total / F32_FLOP_PER_S * 1e3
+            t_bytes = (4 * 2 * n * d_total + len(LARGE_N_LEAF_D) * layout_bytes) / HBM_BYTES_PER_S * 1e3
+            wide_bound = max((4 * 2 * n * d_wide + layout_bytes) / HBM_BYTES_PER_S * 1e3,
+                             2 * csr.nnz * d_wide / F32_FLOP_PER_S * 1e3)
             times = {"ms": t_k, "plain_ms": t_p, "bound_ms": max(t_bytes, t_ops),
                      "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                      "library_ms": t_lib}
-            phase("stimes", f"{spec:28s} {name:22s} round: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
-                            f"torch.sparse.mm {t_lib:.4f} ms, bound {times['bound_ms']:.4f} ms "
-                            f"(bytes {t_bytes:.4f}, nnz={csr.nnz} ops {t_ops:.4f})")
+            idx_h, val_h = idx.cpu(), val.cpu()
+            rows_old = sg.staged_rows(idx_h, val_h, n, sg.BLOCK_ROWS if blocked else 1,
+                                      blocked=blocked)
+            rows_new = sg.staged_rows(idx_h, val_h, n, sg.WINDOW_ROWS, blocked=blocked)
+            phase("stimes", f"{spec:28s} {name:22s} round on the device: kernel {spread(dev_k)} ms, "
+                            f"torch.sparse.mm {t_lib:.4f} ms; eagerly: kernel {spread(eager_k)} ms, "
+                            f"plain {t_p:.4f} ms, torch.sparse.mm {t_lib_e:.4f} ms; bound "
+                            f"{times['bound_ms']:.4f} ms (bytes {t_bytes:.4f}, nnz={csr.nnz} ops "
+                            f"{t_ops:.4f})")
+            phase("stimes", f"{spec:28s} {name:22s} leaf ({n},{d_wide}) on the device: kernel "
+                            f"{spread(wide_k)} ms, torch.sparse.mm {t_lib_wide:.4f} ms, a copy of "
+                            f"the leaf (clone) {t_copy_wide:.4f} ms, bound {wide_bound:.4f} ms; "
+                            f"source rows read a slab: {rows_new} in {sg.WINDOW_ROWS}-row windows, "
+                            f"{rows_old} one "
+                            f"{'8-row block' if blocked else 'destination row'} at a time "
+                            f"(N = {n})")
+            if dev_base:
+                phase("stimes", f"{spec:28s} {name:22s} in turns (baseline, current, current, "
+                                f"baseline): round on the device baseline {spread(dev_base)} ms, "
+                                f"current {spread(dev_k)} ms; eagerly baseline "
+                                f"{spread(eager_base)} ms, current {spread(eager_k)} ms; leaf "
+                                f"({n},{d_wide}) baseline {spread(wide_base)} ms, current "
+                                f"{spread(wide_k)} ms")
             if spec == LARGE_N_TOPOLOGIES[0]:
                 out[name] = times
     return out

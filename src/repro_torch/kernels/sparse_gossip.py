@@ -7,12 +7,13 @@ Replaces the two Pallas kernels of ``repro/kernels/sparse_gossip.py``:
 - ``gossip_mix_sparse`` (``sparse_gossip_pallas``): the scalar ELL row
   gather of ``core.sparse.ell_from_csr``.
 
-Both kernels are CUDA C++ for ``sm_90a`` in ``csrc/sparse_gossip.cu`` (its
-header says what bounds them and how the design answers that), built with
-``nvcc`` at first use and bound with ``ctypes``. A wrapper takes the plain
-version only for tensors on the CPU; a CUDA tensor always launches the
-kernel, or the call raises. The kernels take P unpadded: they mask a ragged
-N and D themselves.
+Both are one CUDA C++ kernel template for ``sm_90a`` in
+``csrc/sparse_gossip.cu`` (its header says what bounds them and how the
+design answers that), built with ``nvcc`` at first use and bound with
+``ctypes``. A wrapper takes the plain version only for tensors on the CPU; a
+CUDA tensor always launches the kernel, or the call raises. The kernels take
+P unpadded: they mask a ragged N and D themselves, and choose on their own
+between bulk copies (16-byte aligned rows) and 4-byte copies.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from __future__ import annotations
 import ctypes
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import count_launch
@@ -28,17 +30,21 @@ from repro_torch.kernels.nvcc import build_library, load_library
 __all__ = [
     "BLOCK_ROWS",
     "SOURCE",
+    "WINDOW_ROWS",
     "build",
     "load",
+    "open_library",
     "gossip_mix_sparse",
     "gossip_mix_sparse_blocked",
     "sparse_gossip_ref",
     "sparse_gossip_blocked_ref",
+    "staged_rows",
 ]
 
 SOURCE = Path(__file__).parent / "csrc" / "sparse_gossip.cu"
 _BUILD_DIR = Path(__file__).parent / "build"
 BLOCK_ROWS = 8  # rows per block of the blocked layout (the reference's sublane count)
+WINDOW_ROWS = 16  # destination rows of a work item of either kernel at most (csrc WROWS)
 
 _lib: ctypes.CDLL | None = None
 
@@ -67,31 +73,60 @@ def sparse_gossip_blocked_ref(idx: torch.Tensor, val: torch.Tensor, p: torch.Ten
     return out.reshape(nb * BLOCK_ROWS, d)[:n].to(p.dtype)
 
 
+def staged_rows(idx, val, n: int, window: int, *, blocked: bool) -> int:
+    """Source row segments read for one column slab when each distinct source
+    row of a window of ``window`` destination rows is read once: the count of
+    distinct (row // window, source) pairs with a nonzero weight.
+
+    ``window=1`` counts a row gather that reads every nonzero slot,
+    ``window=BLOCK_ROWS`` a blocked kernel that reads each active column of
+    each block's tiles, ``window=WINDOW_ROWS`` this file's kernels. idx and
+    val are either layout (numpy arrays or CPU tensors); rows and sources at
+    or past ``n`` are not counted.
+    """
+    idx, val = np.asarray(idx).astype(np.int64), np.asarray(val)
+    if blocked:  # val[r, 8t + o] weighs source 8 idx[r // 8, t] + o
+        kb = idx.shape[1]
+        src = np.repeat(BLOCK_ROWS * np.repeat(idx, BLOCK_ROWS, axis=1)
+                        + np.tile(np.arange(BLOCK_ROWS), kb), BLOCK_ROWS, axis=0)
+    else:
+        src = idx
+    rows = np.broadcast_to(np.arange(src.shape[0])[:, None], src.shape)
+    live = (val != 0) & (rows < n) & (src < n)
+    return int(np.unique(rows[live] // window * n + src[live]).size)
+
+
 def build() -> Path:
     """Compile ``csrc/sparse_gossip.cu`` into a shared library (cached by
     source hash) and return its path. Raises if ``nvcc`` is missing or fails."""
     return build_library(SOURCE, _BUILD_DIR)
 
 
+def open_library(path: Path) -> ctypes.CDLL:
+    """Load a library built from a version of ``csrc/sparse_gossip.cu`` and
+    its kernels into the current CUDA context, without launching one, and
+    let it set their shared-memory limits and read the SM count (so a CUDA
+    graph capture can launch them). Raises on any CUDA error."""
+    args = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+    ]
+    lib = load_library(path, {
+        "sparse_gossip_f32": args, "sparse_gossip_bf16": args,
+        "sparse_gossip_blocked_f32": args, "sparse_gossip_blocked_bf16": args,
+        "sparse_gossip_load": [],
+    })
+    rc = lib.sparse_gossip_load()
+    if rc != 0:
+        raise RuntimeError(f"sparse_gossip kernels failed to load: CUDA error {rc}")
+    return lib
+
+
 def load() -> ctypes.CDLL:
-    """Build and load the library, and load its kernels into the current
-    CUDA context without launching one (so a CUDA graph capture can launch
-    them). Raises on any CUDA error."""
+    """Build and load this file's library (``open_library``), once."""
     global _lib
     if _lib is None:
-        args = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
-        ]
-        lib = load_library(build(), {
-            "sparse_gossip_f32": args, "sparse_gossip_bf16": args,
-            "sparse_gossip_blocked_f32": args, "sparse_gossip_blocked_bf16": args,
-            "sparse_gossip_load": [],
-        })
-        rc = lib.sparse_gossip_load()
-        if rc != 0:
-            raise RuntimeError(f"sparse_gossip kernels failed to load: CUDA error {rc}")
-        _lib = lib
+        _lib = open_library(build())
     return _lib
 
 
@@ -109,12 +144,21 @@ def _check(idx: torch.Tensor, val: torch.Tensor, p: torch.Tensor, name: str) -> 
         raise ValueError(f"{name} runs on CUDA or CPU tensors, got {p.device}")
 
 
+def _layout_args(idx: torch.Tensor, val: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """idx as contiguous int32 and val as contiguous f32 starting on a
+    16-byte boundary (the blocked kernel reads its weights 16 bytes at a
+    time). Tiny (a few KB): copied only when a caller hands something else."""
+    idx = idx.to(torch.int32).contiguous()
+    val = val.to(torch.float32).contiguous()
+    if val.data_ptr() % 16:
+        val = val.clone()
+    return idx, val
+
+
 def _launch(name: str, idx, val, p, n: int, k: int) -> torch.Tensor:
     if not p.is_contiguous():
         raise ValueError(f"{name} wants a contiguous P (reshape the leaf first)")
-    # Tiny (a few KB): cast once if a caller hands other types.
-    idx = idx.to(torch.int32).contiguous()
-    val = val.to(torch.float32).contiguous()
+    idx, val = _layout_args(idx, val)
     lib = _lib or load()
     suffix = "f32" if p.dtype is torch.float32 else "bf16"
     fn = getattr(lib, f"{name}_{suffix}")

@@ -183,6 +183,106 @@ def test_blocked_kernel_skips_all_zero_tiles_exactly(cuda):
     assert torch.equal(got, want)
 
 
+# (topology, D) at the kernels' edges: N not a multiple of the 32-row window
+# (the last window holds rows past N); windows whose distinct sources lap the
+# ring many times (er, ws rewired at beta=1) or whose entries take several
+# plans (er p=0.1; ring:n=9000 spans more sources than one plan's bitmap); one
+# source row in every window (star, whose hub row has 1023 slots); and widths
+# that take the path without bulk copies (D = 1, 10, 513).
+SPARSE_EDGE_CASES = [
+    ("ring:n=7", 64),
+    ("ws:n=1000,k=6,beta=0.2", 640),
+    ("er:n=1024,p=0.02", 256),
+    ("ws:n=1024,k=8,beta=1.0", 300),
+    ("er:n=1024,p=0.1", 64),
+    ("star:n=1024", 32),
+    ("ring:n=9000", 16),
+    ("ws:n=1024,k=8,beta=0.1", 1),
+    ("ws:n=1024,k=8,beta=0.1", 10),
+    ("ws:n=1024,k=8,beta=0.1", 513),
+]
+
+
+@pytest.mark.parametrize("spec,d", SPARSE_EDGE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["sparse_gossip", "sparse_gossip_blocked"])
+def test_sparse_kernel_matches_plain_at_edges(cuda, spec, d, dtype, kernel):
+    layouts, n = _layouts(spec, cuda)
+    fn, ref, idx, val = layouts[kernel]
+    gen = torch.Generator(device=cuda).manual_seed(n + d)
+    p = (torch.rand(n, d, generator=gen, device=cuda) * 2 - 1).to(dtype)
+    reset_launches()
+    got = fn(idx, val, p)
+    torch.cuda.synchronize()
+    assert LAUNCHES[kernel] == 1 and sum(LAUNCHES.values()) == 1
+    assert got.dtype == dtype and got.shape == (n, d)
+    torch.testing.assert_close(got.float(), ref(idx, val, p).float(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["sparse_gossip", "sparse_gossip_blocked"])
+def test_sparse_kernel_reads_an_unaligned_slice(cuda, dtype, kernel):
+    """P and C one element off a 16-byte boundary: the path without bulk copies."""
+    layouts, n = _layouts("ws:n=1024,k=8,beta=0.1", cuda)
+    fn, ref, idx, val = layouts[kernel]
+    flat = torch.rand(n * 640 + 1, generator=torch.Generator(device=cuda).manual_seed(5),
+                      device=cuda).to(dtype)
+    p = flat[1:].view(n, 640)
+    assert p.data_ptr() % 16 != 0 and p.is_contiguous()
+    torch.testing.assert_close(fn(idx, val, p).float(), ref(idx, val, p).float(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("kernel", ["sparse_gossip", "sparse_gossip_blocked"])
+def test_sparse_kernel_takes_unaligned_weights(cuda, kernel):
+    """Weights one float off a 16-byte boundary: the wrapper hands the kernel
+    an aligned copy, and the result is the same."""
+    layouts, n = _layouts("ws:n=1024,k=8,beta=0.1", cuda)
+    fn, ref, idx, val = layouts[kernel]
+    flat = torch.zeros(val.numel() + 1, device=cuda)
+    flat[1:] = val.flatten()
+    shifted = flat[1:].view(val.shape)
+    assert shifted.data_ptr() % 16 != 0
+    p = torch.rand(n, 640, generator=torch.Generator(device=cuda).manual_seed(3), device=cuda)
+    assert torch.equal(fn(idx, shifted, p), fn(idx, val, p))
+
+
+@pytest.mark.parametrize("d", [10, 50176])
+@pytest.mark.parametrize("kernel", ["sparse_gossip", "sparse_gossip_blocked"])
+def test_sparse_kernel_is_deterministic_and_replays_in_a_graph(cuda, d, kernel):
+    """Two launches give the same bits, and so does a launch captured in a
+    CUDA graph and replayed (the kernel's resources are set before capture)."""
+    layouts, n = _layouts("ws:n=1024,k=8,beta=0.1", cuda)
+    fn, _, idx, val = layouts[kernel]
+    p = torch.rand(n, d, generator=torch.Generator(device=cuda).manual_seed(d), device=cuda)
+    first = fn(idx, val, p)
+    assert torch.equal(first, fn(idx, val, p))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        with torch.cuda.graph(graph, stream=side):
+            captured = fn(idx, val, p)
+    torch.cuda.current_stream().wait_stream(side)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, first)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_blocked_kernel_matches_plain_on_a_period_stack(cuda, dtype):
+    """Each period of a stack (unequal tile counts, extra all-zero tiles)."""
+    sched = topology.make_schedule("ws:n=1024,k=8,beta=0.3@rewire=1", seed=0)
+    csrs = [sparse.csr_from_graph(sched.graph_at(r)) for r in range(3)]
+    idx_st, val_st = (torch.as_tensor(a, device=cuda) for a in sparse.stack_block_ell(csrs))
+    p = (torch.rand(1024, 640, generator=torch.Generator(device=cuda).manual_seed(2),
+                    device=cuda) * 2 - 1).to(dtype)
+    for t in range(3):
+        got = sg.gossip_mix_sparse_blocked(idx_st[t], val_st[t], p)
+        torch.testing.assert_close(got.float(),
+                                   sg.sparse_gossip_blocked_ref(idx_st[t], val_st[t], p).float(),
+                                   **_tol(dtype))
+
+
 def test_engine_resolves_large_n_to_sparse_on_the_card(cuda):
     eng = decavg.GossipEngine("ws:n=1024,k=8,beta=0.1")
     assert eng.backend == "sparse" and eng.device.type == "cuda"

@@ -206,6 +206,63 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
         sg.build()
 
 
+# -- staged rows and launch arguments ------------------------------------------
+
+# Source rows read a column slab at N=1024 (chip_smoke.py phase 8 prints these
+# beside the kernel times): a window of 1 row is a row gather reading every
+# nonzero slot, 8 rows a blocked kernel reading each active tile column, and
+# WINDOW_ROWS the windows of this design. Both layouts hold the same nonzeros,
+# so they give the same count for any window of whole 8-row blocks.
+STAGED_ROWS = {
+    "ws:n=1024,k=8,beta=0.1": {1: 9216, 8: 2864, 16: 2358, 32: 2097, 64: 1930},
+    "torus:rows=32,cols=32": {1: 5120, 8: 3328, 16: 3200, 32: 3072, 64: 2048},
+    "caveman:cliques=128,size=8": {1: 8192, 8: 1280, 16: 1152, 32: 1088, 64: 1056},
+}
+
+
+@pytest.mark.parametrize("spec", list(STAGED_ROWS))
+def test_staged_rows_of_the_large_n_layouts(spec):
+    csr = sparse.csr_from_graph(topology.make(spec, seed=0))
+    idx, val = sparse.ell_from_csr(csr)
+    bell = sparse.block_ell_from_csr(csr)
+    for window, want in STAGED_ROWS[spec].items():
+        assert sg.staged_rows(idx, val, 1024, window, blocked=False) == want
+        if window % sg.BLOCK_ROWS == 0:
+            assert sg.staged_rows(bell.idx, bell.val, 1024, window, blocked=True) == want
+    assert sg.WINDOW_ROWS in STAGED_ROWS[spec]
+
+
+def test_staged_rows_skip_padding_and_rows_past_n():
+    """Zero-weight ELL slots, all-zero tiles and the blocked layout's rows
+    past N are never read; nor are the stacked periods' extra zero tiles."""
+    csr = sparse.csr_from_graph(topology.make("ring:n=1001", seed=0))
+    idx, val = sparse.ell_from_csr(csr)
+    bell = sparse.block_ell_from_csr(csr)
+    assert sg.staged_rows(idx, val, 1001, 1, blocked=False) == csr.nnz == 3003
+    assert sg.staged_rows(bell.idx, bell.val, 1001, 1, blocked=True) == 3003
+    other = sparse.csr_from_graph(topology.make("er:n=1001,p=0.01", seed=0))
+    idx_st, val_st = sparse.stack_block_ell([csr, other])
+    assert idx_st.shape[2] > bell.idx.shape[1]
+    assert sg.staged_rows(torch.from_numpy(idx_st[0]), torch.from_numpy(val_st[0]), 1001, 16,
+                          blocked=True) == sg.staged_rows(bell.idx, bell.val, 1001, 16, blocked=True)
+
+
+def test_layout_args_are_int32_f32_and_16_byte_aligned():
+    """The kernels take int32 indices and f32 weights starting on a 16-byte
+    boundary (the blocked kernel reads a tile row 16 bytes at a time): other
+    types are cast and an unaligned view is copied, an aligned one is not."""
+    idx = torch.arange(12, dtype=torch.int64).reshape(3, 4)
+    flat = torch.arange(13, dtype=torch.float32)
+    val = flat[1:].view(3, 4)
+    assert val.data_ptr() % 16 != 0
+    idx32, val32 = sg._layout_args(idx, val)
+    assert idx32.dtype == torch.int32 and torch.equal(idx32.long(), idx)
+    assert val32.data_ptr() % 16 == 0 and torch.equal(val32, val)
+    aligned = torch.zeros(3, 4)
+    assert sg._layout_args(idx32, aligned)[1].data_ptr() == aligned.data_ptr()
+    assert sg._layout_args(idx32, aligned)[0].data_ptr() == idx32.data_ptr()
+
+
 # -- mixing --------------------------------------------------------------------
 
 

@@ -81,10 +81,30 @@ carries on:
                peak memory printed; the same requests with the weights in f32
                give the same tokens through the kernel and without it;
 13. cli      -- python -m repro_torch.launch.serve with its defaults, on the
-               card.
+               card;
+14. faults   -- the paper's N=100 run (full width) under churn (the top
+               quarter of hubs killed at round 3), stragglers (a fifth of
+               the nodes 2 rounds stale) and edge drops, through run_spec on
+               the dense and sparse backends, loop and fused: records carry
+               alive_count and alive_min is 75; loop and fused within 1e-6,
+               the backends within 1e-5, dead nodes' params and momentum
+               bit-unchanged from their death; the churn_smoke preset
+               through run_sweep (hub_kill_hurts_more and its two AUCs
+               printed, not asserted); one faulted gossip round's device
+               time beside an unfaulted one;
+15. compress -- CHOCO top-k gossip: the N=100 run on pallas (the loop) with
+               compress=1.0 equals the uncompressed run (rtol 1e-5, atol
+               1e-6), compress=0.25 through run_spec stays finite with 8
+               gossip_mix launches a gossip round; the large_n ws N=1024 run
+               on sparse_pallas, fused, compress=0.25, with 4 blocked-kernel
+               launches a gossip round, agrees per node with the sparse
+               backend's CHOCO run (phase 9's criterion); one CHOCO round's
+               device time (top-k plus mix) at both sizes.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}. Without a CUDA card, or without
+The line before the last is a JSON object with one entry per kernel (its
+launches: those of every path above that runs it, each path's counts set to
+0 just before it and read just after); the last line is {"ok": true,
+"device": {...}}. Without a CUDA card, or without
 the repo beside it, the script exits non-zero and prints no result.
 """
 
@@ -135,6 +155,11 @@ FLASH_CASES = [(1, 64, 4, 2, 32, None), (2, 100, 8, 2, 32, None), (1, 128, 4, 4,
 FLASH_TOL = {torch.float32: 3e-5, torch.bfloat16: 3e-2}
 SERVE_LENS = (37, 100, 128, 200, 333, 512, 777, 1000)
 SERVE_MAX_NEW = 16
+# Slice E: the fault spec of phase 14 (hubs killed at round 3 of MAIN_SPEC's
+# 6, stragglers, edge drops) and the CHOCO top-k fraction of phase 15.
+FAULT_SPEC = ("churn:p_leave=1.0,p_join=0.0,frac=0.25,start=3@targeted=hubs;"
+              "straggler:frac=0.2,delay=2;drop:p_edge=0.05")
+CHOCO_K = 0.25
 # bf16 logits through the kernel vs the plain path: both compute attention in
 # f32 and round it to bf16, so they differ where the f32 results straddle a
 # bf16 rounding boundary (1 ulp = 2^-8 relative); logits are about N(0, 1)
@@ -516,8 +541,14 @@ def main() -> int:
     flash_times = flash_attention_times(dev, gen, base_fa)
     flash_launches = serve_main_path(dev)
     serve_cli()
+
+    # 14-15. slice E: faults and CHOCO compressed gossip
+    faults_main_path(dev, kind)
+    choco_launches = compress_main_path(dev, kind)
     path_launches = {**large_n_launches, "gossip_mix": launches["gossip_mix"],
                      "flash_attention": flash_launches}
+    for name, n in choco_launches.items():
+        path_launches[name] += n
 
     def entry(name, source, replaces, t, err):
         return {
@@ -693,8 +724,9 @@ def large_n_trainer(spec, dev):
                         seed=spec.seed + 1, device=dev)
     tr = DecentralizedTrainer(
         sched, loader, lr=spec.lr, momentum=spec.momentum, mix_impl=spec.backend,
-        sparse_p_chunk=spec.model.get("sparse_p_chunk"), seed=spec.seed,
-        in_dim=ds.x_train.shape[1], hidden=spec.model.get("hidden"), num_classes=ds.num_classes,
+        sparse_p_chunk=spec.model.get("sparse_p_chunk"), compress=spec.model.get("compress"),
+        faults=spec.faults, seed=spec.seed, in_dim=ds.x_train.shape[1],
+        hidden=spec.model.get("hidden"), num_classes=ds.num_classes,
         class_groups=runner.default_class_groups(ds.num_classes), device=dev,
     )
     return tr, ds
@@ -818,6 +850,245 @@ def large_n_main_path(dev, kind: str) -> dict[str, int]:
                          f"{err:.3e} (tol 3e-5), sparse_gossip launches 4")
         if not err <= TOL[torch.float32]:
             fail(f"{spec}: row gather kernel round differs from mix_sparse by {err}")
+    return launches
+
+
+def max_diff(a, b) -> float:
+    from repro_torch.tree import tree_leaves
+
+    return max(float((x - y).abs().max()) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def mlp_tree(n: int, dims, gen, dev) -> dict:
+    """A node-stacked MLP parameter tree with values in [-1, 1)."""
+    return {"layers": [
+        {"b": torch.rand(n, b, generator=gen, device=dev) * 2 - 1,
+         "w": torch.rand(n, a, b, generator=gen, device=dev) * 2 - 1}
+        for a, b in zip(dims[:-1], dims[1:])
+    ]}
+
+
+def faults_main_path(dev, kind: str) -> None:
+    """Phase 14: the paper's run under faults, loop and fused, dense and sparse."""
+    from repro_torch.core import decavg, faults, topology
+    from repro_torch.experiments import analysis, presets, runner
+    from repro_torch.experiments.spec import ExperimentSpec
+    from repro_torch.experiments.store import ResultsStore
+    from repro_torch.tree import tree_leaves, tree_map
+
+    churn = faults.parse_faults(FAULT_SPEC)[0].params
+    start = int(churn["start"])
+    n = topology.make_schedule(MAIN_SPEC["topology"], seed=0).num_nodes
+    n_dead = math.ceil(float(churn["frac"]) * n)  # the hub pool, all killed (p_leave=1)
+    with tempfile.TemporaryDirectory() as tmp:
+        store = ResultsStore(str(Path(tmp) / "faults.jsonl"))
+        for backend in ("dense", "sparse"):
+            for fused in (False, True):
+                spec = ExperimentSpec(**MAIN_SPEC, backend=backend, faults=FAULT_SPEC,
+                                      model={} if fused else {"fused": False})
+                t0 = time.perf_counter()
+                final = runner.run_spec(spec, store, raise_on_error=True)["final"]
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                records = store.curves(spec.run_id)
+                for r in records:
+                    for key in ("mean_acc", "g2_acc_spread", "consensus_mean"):
+                        if not math.isfinite(r[key]):
+                            fail(f"faults {backend}: round {r['round']} {key} = {r[key]}")
+                alive = [r.get("alive_count") for r in records]
+                if None in alive or final["alive_min"] != n - n_dead or final["fused"] is not fused:
+                    fail(f"faults {backend} fused={fused}: alive_count {alive}, final "
+                         f"alive_min {final.get('alive_min')}, fused {final['fused']}")
+                if final["device"] != kind or final["churn_rounds"] != [start]:
+                    fail(f"faults {backend}: device {final['device']}, churn_rounds "
+                         f"{final['churn_rounds']}")
+                phase("faults", f"{spec.run_id} {backend} {'fused' if fused else 'loop'}: "
+                                f"alive_count {alive}, alive_min {final['alive_min']}, "
+                                f"churn_rounds {final['churn_rounds']}, recovery_rounds "
+                                f"{final['recovery_rounds']}, final mean_acc "
+                                f"{final['mean_acc']:.4f}, g2_acc_spread "
+                                f"{final['g2_acc_spread']:.4f}; {spec.rounds / wall:.3f} rounds/s "
+                                f"({wall:.2f} s, set-up included)")
+
+    # The same runs through the trainer: params and momentum compared.
+    states, dead_rows = {}, 0
+    for backend in ("dense", "sparse"):
+        for path in ("run", "run_fused"):
+            spec = ExperimentSpec(**MAIN_SPEC, backend=backend, faults=FAULT_SPEC)
+            tr, ds = large_n_trainer(spec, dev)
+            before = {}
+
+            def snap(m, tr=tr, before=before):
+                if m.round == start - 1:  # the state the dead nodes must keep
+                    before["p"] = tree_map(torch.clone, tr.params)
+                    before["m"] = tree_map(torch.clone, tr.momentum)
+
+            getattr(tr, path)(spec.rounds, eval_every=1, x_test=ds.x_test, y_test=ds.y_test,
+                              on_round=snap)
+            torch.cuda.synchronize()
+            dead = torch.as_tensor(~tr.engine.fault_trace.alive(spec.rounds - 1), device=dev)
+            dead_rows = int(dead.sum())
+            frozen = all(torch.equal(a[dead], b[dead]) for a, b in zip(
+                tree_leaves(before["p"]) + tree_leaves(before["m"]),
+                tree_leaves(tr.params) + tree_leaves(tr.momentum)))
+            if dead_rows != n_dead or not frozen:
+                fail(f"faults {backend} {path}: {dead_rows} dead nodes, frozen {frozen}")
+            states[backend, path] = (tr.params, tr.momentum)
+    diffs = {b: max(max_diff(states[b, "run"][0], states[b, "run_fused"][0]),
+                    max_diff(states[b, "run"][1], states[b, "run_fused"][1]))
+             for b in ("dense", "sparse")}
+    across = max_diff(states["dense", "run_fused"][0], states["sparse", "run_fused"][0])
+    phase("faults", f"loop vs fused max abs diff: dense {diffs['dense']:.3e}, sparse "
+                    f"{diffs['sparse']:.3e} (tol 1e-6); dense vs sparse {across:.3e} (tol 1e-5); "
+                    f"the {dead_rows} dead nodes' params and momentum bit-unchanged from round "
+                    f"{start - 1} in all four runs")
+    if max(diffs.values()) > 1e-6 or across > 1e-5:
+        fail("faulted runs disagree")
+
+    # The churn_smoke preset (recorded, not asserted: the port's RNG differs).
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "churn.jsonl")
+        t0 = time.perf_counter()
+        summary = runner.run_sweep(presets.get_preset("churn_smoke"), path)
+        wall = time.perf_counter() - t0
+        if summary["failed"] or summary["ran"] != 4:
+            fail(f"churn_smoke runs failed: {summary}")
+        checks = analysis.qualitative_checks(analysis.summarize(ResultsStore(path)))
+        phase("faults", f"churn_smoke preset ({summary['ran']} runs, {wall:.2f} s): " + json.dumps(
+            {k: checks.get(k) for k in ("hub_kill_hurts_more", "hub_kill_auc_g2_spread",
+                                        "leaf_kill_auc_g2_spread")}))
+
+    # One gossip round at N=100 on the device alone: faulted against plain.
+    spec = ExperimentSpec(**MAIN_SPEC, backend="dense", faults=FAULT_SPEC)
+    tr, _ = large_n_trainer(spec, dev)
+    prog = tr.engine.program(spec.rounds)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    params = mlp_tree(tr.num_nodes, MLP_DIMS, gen, dev)
+    hist = faults.init_history(params, prog.delay_max + 1)
+    r_t = torch.tensor(start, device=dev)
+    faulted = lambda: prog.apply_period(  # noqa: E731
+        params, 0, r=r_t, pub=faults.publish(hist, r_t, prog.f_delay))
+    plain = lambda: decavg.mix_dense(prog.w[0], params)  # noqa: E731
+    p_in = tree_map(torch.clone, params)
+
+    def bookkeeping():  # the faulted round's other work: snapshot, freeze, ring push
+        for a, b in zip(tree_leaves(p_in), tree_leaves(params)):
+            a.copy_(b)
+        frozen = faults.where_alive(prog.alive_at(r_t), params, p_in)
+        faults.push(frozen, hist, r_t)
+
+    t_f, t_p, t_b = device_ms(faulted, reps=5), device_ms(plain, reps=5), device_ms(bookkeeping, reps=5)
+    phase("faults", f"one N={tr.num_nodes} gossip round (8 leaves, f32) on the device: faulted "
+                    f"(renormalized, stale publishes, dead rows passed) {t_f:.4f} ms, plain "
+                    f"torch.matmul mix {t_p:.4f} ms; the faulted round's params bookkeeping "
+                    f"(snapshot, where_alive, ring push) {t_b:.4f} ms")
+
+
+def compress_main_path(dev, kind: str) -> dict[str, int]:
+    """Phase 15; returns each kernel's launches on the CHOCO paths."""
+    from repro_torch.core import decavg
+    from repro_torch.experiments import presets, runner
+    from repro_torch.experiments.spec import ExperimentSpec
+    from repro_torch.experiments.store import ResultsStore
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.tree import tree_leaves
+
+    launches = {"gossip_mix": 0, "sparse_gossip_blocked": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        store = ResultsStore(str(Path(tmp) / "choco.jsonl"))
+        spec = ExperimentSpec(**MAIN_SPEC, backend="pallas", model={"compress": CHOCO_K})
+        reset_launches()
+        t0 = time.perf_counter()
+        final = runner.run_spec(spec, store, raise_on_error=True)["final"]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches["gossip_mix"] = LAUNCHES["gossip_mix"]
+        want = len(LEAF_D) * spec.rounds
+        records = store.curves(spec.run_id)
+        finite = all(math.isfinite(r[k]) for r in records
+                     for k in ("mean_acc", "g2_acc_spread", "consensus_mean"))
+        if launches["gossip_mix"] != want or not finite or final["fused"]:
+            fail(f"CHOCO pallas: gossip_mix launched {launches['gossip_mix']} times (want "
+                 f"{want}), records finite {finite}, fused {final['fused']}")
+        phase("compress", f"{spec.run_id} pallas compress={CHOCO_K}: {len(records)} records, "
+                          f"final mean_acc {final['mean_acc']:.4f}, g2_acc_spread "
+                          f"{final['g2_acc_spread']:.4f}, consensus_mean "
+                          f"{final['consensus_mean']:.4g}; gossip_mix launches "
+                          f"{launches['gossip_mix']} = 8 x {spec.rounds}; "
+                          f"{spec.rounds / wall:.3f} rounds/s ({wall:.2f} s, set-up included)")
+
+    # compress=1.0 sends every delta: CHOCO is DecAvg.
+    runs = {}
+    for k in (None, 1.0):
+        s = ExperimentSpec(**MAIN_SPEC, backend="pallas",
+                           model={} if k is None else {"compress": k})
+        tr, _ = large_n_trainer(s, dev)
+        tr.run(s.rounds)
+        runs[k] = tree_leaves(tr.params)
+    ok = all(torch.allclose(b, a, rtol=1e-5, atol=1e-6) for a, b in zip(runs[None], runs[1.0]))
+    diff = max(float((a - b).abs().max()) for a, b in zip(runs[None], runs[1.0]))
+    phase("compress", f"pallas compress=1.0 vs uncompressed after {MAIN_SPEC['rounds']} rounds: "
+                      f"max abs diff {diff:.3e}, within rtol 1e-5 + atol 1e-6: {ok}")
+    if not ok:
+        fail("compress=1.0 differs from plain DecAvg")
+
+    # The large_n ws run, CHOCO on sparse_pallas (fused) against sparse.
+    ws = next(s for s in presets.get_preset("large_n")
+              if s.partitioner == "hub_focused" and s.topology == LARGE_N_TOPOLOGIES[0])
+    choco = dataclasses.replace(ws, backend="sparse_pallas",
+                                model={**ws.model, "compress": CHOCO_K})
+    with tempfile.TemporaryDirectory() as tmp:
+        store = ResultsStore(str(Path(tmp) / "choco_n.jsonl"))
+        reset_launches()
+        t0 = time.perf_counter()
+        final = runner.run_spec(choco, store, raise_on_error=True)["final"]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches["sparse_gossip_blocked"] = LAUNCHES["sparse_gossip_blocked"]
+        want = len(LARGE_N_LEAF_D) * choco.rounds
+        if launches["sparse_gossip_blocked"] != want or final["fused"] is not True:
+            fail(f"CHOCO sparse_pallas: fused {final['fused']}, sparse_gossip_blocked launched "
+                 f"{launches['sparse_gossip_blocked']} times, want {want}")
+        phase("compress", f"{choco.run_id} sparse_pallas compress={CHOCO_K}: fused, final "
+                          f"mean_acc {final['mean_acc']:.4f}, consensus_mean "
+                          f"{final['consensus_mean']:.4g}; sparse_gossip_blocked launches "
+                          f"{launches['sparse_gossip_blocked']} = 4 x {choco.rounds}; "
+                          f"{choco.rounds / wall:.3f} rounds/s ({wall:.2f} s, set-up included)")
+    last, trainers = {}, {}
+    for backend in ("sparse_pallas", "sparse"):
+        s = dataclasses.replace(choco, backend=backend)
+        tr, ds = large_n_trainer(s, dev)
+        last[backend] = tr.run_fused(s.rounds, eval_every=s.rounds,
+                                     x_test=ds.x_test, y_test=ds.y_test)[-1]
+        trainers[backend] = tr
+    acc_tol, cons_rtol = 3e-3, 1e-3
+    acc_diff = float(np.abs(last["sparse_pallas"].per_node_acc - last["sparse"].per_node_acc).max())
+    cons_diff = float(np.max(np.abs(last["sparse_pallas"].consensus - last["sparse"].consensus)
+                             / last["sparse"].consensus))
+    phase("compress", f"{choco.topology} CHOCO sparse_pallas vs sparse per node: accuracy max "
+                      f"diff {acc_diff:.4f} (tol {acc_tol}), consensus max rel diff "
+                      f"{cons_diff:.2e} (tol {cons_rtol})")
+    if acc_diff > acc_tol or cons_diff > cons_rtol:
+        fail("CHOCO sparse_pallas and sparse disagree per node")
+
+    # One CHOCO round (top-k of every leaf, the mix of the references, the
+    # residual update) on the device alone, at both sizes.
+    gen = torch.Generator(device=dev).manual_seed(15)
+    s100 = ExperimentSpec(**MAIN_SPEC, backend="pallas", model={"compress": CHOCO_K})
+    tr100, _ = large_n_trainer(s100, dev)
+    p100 = tr100.params
+    w = tr100.engine.w
+    t100 = device_ms(lambda: tr100._gossip(lambda q: decavg.mix_pallas(w, q), p100), reps=5)
+    t100_plain = device_ms(lambda: decavg.mix_pallas(w, p100), reps=5)
+    tr_n = trainers["sparse_pallas"]
+    prog = tr_n.engine.program(1)
+    pn = mlp_tree(tr_n.num_nodes, LARGE_N_DIMS, gen, dev)
+    tn = device_ms(lambda: tr_n._gossip(lambda q: prog.apply_period(q, 0), pn), reps=5)
+    tn_plain = device_ms(lambda: prog.apply_period(pn, 0), reps=5)
+    phase("compress", f"one CHOCO round (k={CHOCO_K}: top-k, mix of the references, residual) "
+                      f"on the device: N={tr100.num_nodes} on gossip_mix {t100:.4f} ms (its mix alone "
+                      f"{t100_plain:.4f} ms); N={tr_n.num_nodes} ws on the blocked kernel {tn:.4f} ms (its mix "
+                      f"alone {tn_plain:.4f} ms)")
     return launches
 
 

@@ -8,7 +8,8 @@ package, so every spec keeps its run id).
   runs (``large_n``'s six N=1024 runs and ``large_n_smoke``'s ``sparse``
   run) take the sparse backend and ``run_fused``; the ``sparse_sharded``
   runs fail with NotImplementedError until slice F ports that backend.
-- ``churn_smoke``: fault injection — not ported yet (slice E).
+- ``churn_smoke``: fault injection: hub kills against leaf kills on BA N=16
+  (``hub_kill_hurts_more``).
 - ``lm_smoke``: LLM cohorts — not ported yet (slice D).
 """
 

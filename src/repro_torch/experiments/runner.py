@@ -8,18 +8,24 @@ spread nodes, consensus distance, wall-clock) and the same ``run_end``
 summary, plus ``framework`` and ``device``. As in the reference, a run takes
 the trainer's ``run_fused`` when its backend supports it (dense, sparse,
 sparse_pallas) unless the spec says ``model={"fused": False}``, and
-``final.fused`` records the path it took.
+``final.fused`` records the path it took. A spec with ``faults`` also records
+``alive_count`` per evaluated round, and ``faults``, ``alive_min``,
+``alive_final``, ``churn_rounds`` and ``recovery_rounds`` in its summary;
+``model={"compress": k}`` turns on CHOCO gossip.
 
-Not ported yet, and rejected with ``NotImplementedError``: specs with
-``faults`` (slice E), the ``lm`` executor (slice D) and ``processes > 1``.
+Not ported yet, and rejected with ``NotImplementedError``: the ``lm``
+executor (slice D).
 
 ``run_sweep`` skips specs whose run_id already has a completed ``run_end``
 in the store. ``run_id`` is the reference's content hash, so keep the two
-packages' stores apart (the sweep CLI's default store names do).
+packages' stores apart (the sweep CLI's default store names do). With
+``processes > 1`` the specs fan out over a spawn-context process pool; each
+worker writes a private shard that is merged into the store.
 """
 
 from __future__ import annotations
 
+import os
 import time
 import traceback
 from typing import Any, Callable
@@ -145,6 +151,7 @@ def _run_mlp(spec: ExperimentSpec, emit: Emit, verbose: bool,
         sparse_p_chunk=spec.model.get("sparse_p_chunk"),
         gossip_every=spec.gossip_every,
         compress=spec.model.get("compress"),
+        faults=spec.faults,
         same_init=spec.same_init,
         seed=spec.seed,
         in_dim=int(spec.model.get("in_dim", ds.x_train.shape[1])),
@@ -153,7 +160,12 @@ def _run_mlp(spec: ExperimentSpec, emit: Emit, verbose: bool,
         class_groups=groups,
         device=device,
     )
+    fault_trace = None
+    if trainer.faulted:
+        fault_trace = trainer.engine.fault_trace
+        fault_trace.ensure(spec.rounds)
     last: dict[str, Any] = {}
+    curve: list[tuple[int, float | None]] = []  # (round, g2_acc_spread) evals
 
     def on_round(m) -> None:
         rec: dict[str, Any] = {
@@ -174,6 +186,9 @@ def _run_mlp(spec: ExperimentSpec, emit: Emit, verbose: bool,
             "consensus_max": float(m.consensus.max()),
             "wall_s": round(m.wall_s, 4),
         }
+        if fault_trace is not None:
+            rec["alive_count"] = int(fault_trace.alive(m.round).sum())
+        curve.append((m.round, rec["g2_acc_spread"]))
         last.clear()
         last.update(rec)
         emit(rec)
@@ -200,6 +215,19 @@ def _run_mlp(spec: ExperimentSpec, emit: Emit, verbose: bool,
         "framework": "torch",
         "device": device_name(device),
     }
+    if fault_trace is not None:
+        from repro_torch.core import faults as faults_mod
+
+        alive_counts = [int(fault_trace.alive(r).sum()) for r in range(spec.rounds)]
+        events = faults_mod.churn_rounds(alive_counts, trainer.num_nodes)
+        final["faults"] = spec.faults
+        final["alive_min"] = min(alive_counts)
+        final["alive_final"] = alive_counts[-1]
+        final["churn_rounds"] = events
+        final["recovery_rounds"] = (
+            faults_mod.recovery_rounds([r for r, _ in curve], [a for _, a in curve], events[0])
+            if events else None
+        )
     # Community runs additionally record the paper's Table-1 confusion view.
     if trainer.graph.blocks is not None and trainer.graph.num_nodes <= 256:
         from repro_torch.train.metrics import community_confusion
@@ -222,8 +250,6 @@ def _run_mlp(spec: ExperimentSpec, emit: Emit, verbose: bool,
 def _executor(spec: ExperimentSpec):
     """The executor for ``spec``, or NotImplementedError for what the port
     does not run yet."""
-    if spec.faults is not None:
-        raise NotImplementedError("faults: slice E")
     kind = spec.model.get("kind", "mlp")
     if kind != "mlp":
         raise NotImplementedError(f"model kind {kind!r}: slice D")
@@ -259,6 +285,89 @@ def run_spec(
     return {"status": "completed", "run_id": rid, "final": final}
 
 
+def _worker(args: tuple[dict[str, Any], str, bool, str]) -> str:
+    """Process-pool entry: run one spec on ``device`` into a private JSONL
+    shard. The device comes as a string: the worker makes its own CUDA
+    context."""
+    spec_json, shard_path, verbose, device = args
+    spec = ExperimentSpec.from_json(spec_json)
+    run_spec(spec, ResultsStore(shard_path), verbose=verbose, raise_on_error=False,
+             device=device)
+    return shard_path
+
+
+def _merge_shard(store: ResultsStore, shard: str) -> None:
+    with open(shard) as f:
+        store.append_lines(f)
+    os.remove(shard)
+
+
+def _salvage_shards(
+    store: ResultsStore, shard_dir: str, verbose: bool, *, min_age_s: float = 0.0
+) -> int:
+    """Merge and remove the shard files a dead worker (or killed parent) left
+    in ``shard_dir``, then drop the directory.
+
+    Salvaged partial shards lack their ``run_end`` line, so resume re-runs
+    them. Called before a sweep, with ``min_age_s`` so that a concurrent
+    sweep's in-flight shards are left alone."""
+    if not os.path.isdir(shard_dir):
+        return 0
+    import glob
+
+    salvaged = 0
+    for shard in sorted(glob.glob(os.path.join(shard_dir, "*.jsonl"))):
+        try:
+            if min_age_s and time.time() - os.path.getmtime(shard) < min_age_s:  # lint: allow[D002] — shard age vs file mtime needs the wall clock
+                continue  # likely still being written by a live sweep
+            _merge_shard(store, shard)
+            salvaged += 1
+        except FileNotFoundError:
+            continue  # another sweep salvaged it between glob and merge
+    try:
+        os.rmdir(shard_dir)
+    except OSError:
+        pass  # a concurrent sweep may still be writing here; leave it
+    if verbose and salvaged:
+        print(f"salvaged {salvaged} stale shard(s) from {shard_dir}")
+    return salvaged
+
+
+def _run_pool(todo: list[ExperimentSpec], store: ResultsStore, shard_dir: str,
+              processes: int, verbose: bool, device: torch.device) -> None:
+    """Run ``todo`` over a spawn-context process pool, one shard a spec."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+
+    os.makedirs(shard_dir, exist_ok=True)
+    jobs = [(s.to_json(), os.path.join(shard_dir, f"{s.run_id}.jsonl"), verbose, str(device))
+            for s in todo]
+    # Spawn, never fork: the parent may hold a CUDA context. And a process
+    # pool executor, not mp.Pool: a worker killed mid-run fails its future
+    # (BrokenProcessPool) instead of blocking on the lost result forever.
+    try:
+        with cf.ProcessPoolExecutor(max_workers=min(processes, len(jobs)),
+                                    mp_context=mp.get_context("spawn")) as pool:
+            for fut in cf.as_completed([pool.submit(_worker, j) for j in jobs]):
+                try:
+                    _merge_shard(store, fut.result())
+                except Exception as e:  # noqa: BLE001 — keep draining; the run shows as failed
+                    if verbose:
+                        print(f"worker failed: {type(e).__name__}: {e}")
+    finally:
+        # Whatever this sweep's own workers left behind (a killed worker's
+        # partial shard); a concurrent sweep's shards are not ours to take.
+        for _, shard, _, _ in jobs:
+            try:
+                _merge_shard(store, shard)
+            except FileNotFoundError:
+                pass  # merged in the loop above
+        try:
+            os.rmdir(shard_dir)
+        except OSError:
+            pass  # non-empty: a concurrent sweep is still writing here
+
+
 def run_sweep(
     specs: list[ExperimentSpec],
     store_path: str,
@@ -268,30 +377,36 @@ def run_sweep(
     verbose: bool = False,
     device: str | torch.device | None = None,
 ) -> dict[str, Any]:
-    """Run a list of specs against one results store, one after another.
+    """Run a list of specs against one results store.
 
     With ``resume`` (default), specs whose run_id already has a completed
-    run_end are skipped. ``processes > 1`` (the reference's process pool) is
-    not ported yet and raises.
+    run_end are skipped. With ``processes > 1``, specs fan out over a
+    spawn-context process pool; each worker writes a private shard, merged
+    into the store as it completes. On one card the workers share it.
     """
-    if processes > 1:
-        raise NotImplementedError("run_sweep(processes > 1) is not ported yet")
     device = resolve_device(device)
     store = ResultsStore(store_path)
+    shard_dir = store_path + ".shards"
+    _salvage_shards(store, shard_dir, verbose, min_age_s=60.0)
     done = store.completed() if resume else set()
     todo = [s for s in specs if s.run_id not in done]
     skipped = len(specs) - len(todo)
     if verbose and skipped:
         print(f"resume: skipping {skipped} completed run(s)")
-    statuses = []
-    for i, spec in enumerate(todo):
-        if verbose:
-            print(f"[{i + 1}/{len(todo)}] {spec.run_id}  ({spec.topology} "
-                  f"x {spec.partitioner})")
-        statuses.append(
-            run_spec(spec, store, verbose=verbose, raise_on_error=False, device=device)
-        )
-    failed = [s["run_id"] for s in statuses if s["status"] != "completed"]
+    if processes <= 1 or len(todo) <= 1:
+        statuses = []
+        for i, spec in enumerate(todo):
+            if verbose:
+                print(f"[{i + 1}/{len(todo)}] {spec.run_id}  ({spec.topology} "
+                      f"x {spec.partitioner})")
+            statuses.append(
+                run_spec(spec, store, verbose=verbose, raise_on_error=False, device=device)
+            )
+        failed = [s["run_id"] for s in statuses if s["status"] != "completed"]
+    else:
+        _run_pool(todo, store, shard_dir, processes, verbose, device)
+        finals = store.finals()
+        failed = [s.run_id for s in todo if s.run_id not in finals]
     return {
         "total": len(specs),
         "ran": len(todo),

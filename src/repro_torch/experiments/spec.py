@@ -60,9 +60,8 @@ class ExperimentSpec:
         hash the same way here, so a spec keeps its run id across packages.
       faults: fault-injection spec string (core/faults.py grammar, e.g.
         ``"churn:p_leave=0.05,p_join=0.5@targeted=hubs"``), or None for a
-        fault-free run. Expanded deterministically from ``seed``. The
-        fault grammar is not ported yet: the runner rejects a spec with
-        faults set, and nothing validates the string here.
+        fault-free run. Expanded deterministically from ``seed``, and parsed
+        here, so a malformed spec fails when it is made.
       tag: freeform grouping label — excluded from the run id.
     """
 
@@ -90,6 +89,10 @@ class ExperimentSpec:
             raise ValueError(
                 f"unknown partitioner {self.partitioner!r}; one of {PARTITIONERS}"
             )
+        if self.faults is not None:
+            from repro_torch.core.faults import parse_faults
+
+            parse_faults(self.faults)  # fail fast on a malformed spec
         if self.rounds < 1:
             raise ValueError(f"rounds must be >= 1, got {self.rounds}")
         if self.eval_every < 1:

@@ -3,6 +3,7 @@
     python -m repro_torch.experiments.sweep --preset smoke
     python -m repro_torch.experiments.sweep --preset paper
     python -m repro_torch.experiments.sweep --specs my_grid.json --store results/my.jsonl
+    python -m repro_torch.experiments.sweep --preset churn_smoke --processes 2
 
 Runs on the CUDA card unless ``--device cpu`` is given. Re-running the same
 command is idempotent: completed runs (matched by the spec content hash) are
@@ -46,6 +47,11 @@ def main(argv: list[str] | None = None) -> int:
                     help="results JSONL path (default: results/torch_sweep_<preset>.jsonl)")
     ap.add_argument("--device", default=None,
                     help="torch device to run on (default: cuda)")
+    ap.add_argument("--processes", type=int, default=1,
+                    help="run specs in this many spawned worker processes, each "
+                         "writing a private shard merged into the store (default 1). "
+                         "On one card the workers share the device: each makes its "
+                         "own CUDA context on it")
     ap.add_argument("--fresh", action="store_true",
                     help="ignore completed runs in the store (no resume)")
     ap.add_argument("--bench-out", default=None,
@@ -74,7 +80,8 @@ def main(argv: list[str] | None = None) -> int:
     )
     verbose = not args.quiet
     summary = runner.run_sweep(
-        specs, store_path, resume=not args.fresh, verbose=verbose, device=args.device,
+        specs, store_path, resume=not args.fresh, processes=args.processes,
+        verbose=verbose, device=args.device,
     )
     print(
         f"sweep done: {summary['ran']} ran, {summary['skipped']} skipped "

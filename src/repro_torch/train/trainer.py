@@ -24,7 +24,18 @@ Two execution paths over the same numerics, as in the reference:
   params as ``run`` (the tests hold them to 1e-6, and to the bit for the
   sparse backend). On the CPU the same staged rounds run eagerly.
 
-``compress=`` and ``faults=`` raise (slice E).
+``faults=`` (core/faults.py) runs the faulted round on the dense and sparse
+backends: local steps, dead nodes (params and momentum) put back to their
+pre-round values, the straggler ring pushed every round, and on gossip rounds
+the renormalized mix of the published snapshots. ``compress=`` (a top-k
+fraction) turns on CHOCO gossip (core/compress.py): each gossip round every
+node publishes the top-k of ``params - reference``, peers mix the shared
+references, and ``params += W @ ref - ref``; at ``k_frac = 1`` this is DecAvg.
+The two do not compose, as in the reference. In ``run_fused`` every
+round-dependent value of a captured graph (the round's alive and keep rows,
+the ring's slots) is read on the device from a buffer refilled before each
+replay, and the compression reference is a static buffer that only the
+gossip rounds' graphs advance.
 """
 
 from __future__ import annotations
@@ -36,7 +47,9 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core import compress as compress_mod
 from repro_torch.core import decavg
+from repro_torch.core import faults as faults_mod
 from repro_torch.core.topology import Graph, TopologySchedule
 from repro_torch.data.loader import NodeLoader
 from repro_torch.graphs import Staged
@@ -73,12 +86,17 @@ class RoundMetrics:
 
 
 class DecentralizedTrainer:
-    """DecAvg over the paper's MLP, with every node's state stacked on one
-    device.
+    """DecAvg over a model family (default: the paper's MLP), with every
+    node's state stacked on one device.
 
-    ``params`` (node-stacked tensors) replaces the seeded initialisation, so
-    tests can start both packages from the same weights. ``device`` is where
-    everything runs; None means CUDA (and raises without a card).
+    ``init_fn(generator)`` returns one node's params (default: ``init_mlp``
+    with ``in_dim``/``hidden``/``num_classes``), drawn from a CPU
+    ``torch.Generator`` seeded with ``seed``. ``forward_fn(p, x)`` is one
+    node's forward pass, mapped over the node axis with ``torch.func.vmap``
+    (default: ``mlp_forward`` on the stacked params). ``params``
+    (node-stacked tensors) replaces the initialisation, so tests can start
+    both packages from the same weights. ``device`` is where everything
+    runs; None means CUDA (and raises without a card).
     """
 
     def __init__(
@@ -97,6 +115,8 @@ class DecentralizedTrainer:
         faults: str | None = None,
         same_init: bool = True,
         seed: int = 0,
+        init_fn: Callable[[torch.Generator], PyTree] | None = None,
+        forward_fn: Callable[[PyTree, torch.Tensor], torch.Tensor] | None = None,
         in_dim: int = 784,
         hidden: Sequence[int] | None = None,
         num_classes: int = 10,
@@ -104,15 +124,20 @@ class DecentralizedTrainer:
         params: PyTree | None = None,
         device: str | torch.device | None = None,
     ):
-        if compress is not None:
-            raise NotImplementedError("compress= (CHOCO gossip): slice E")
-        if faults is not None:
-            raise NotImplementedError("faults: slice E")
         self.engine = decavg.GossipEngine(
             graph, data_sizes=loader.sizes.astype(np.float64), backend=mix_impl,
             matrix=matrix, sparse_p_chunk=sparse_p_chunk, gossip_every=gossip_every,
-            seed=seed, n=len(loader.sizes), device=device,
+            faults=faults, seed=seed, n=len(loader.sizes), device=device,
         )
+        self.faulted = self.engine.faults is not None
+        if self.faulted and compress is not None:
+            raise ValueError(
+                "faults do not compose with compress= gossip: the CHOCO "
+                "reference update assumes every published model is current"
+            )
+        if compress is not None and not 0.0 < float(compress) <= 1.0:
+            raise ValueError(f"compress (top-k fraction) must be in (0, 1], got {compress}")
+        self.compress = None if compress is None else float(compress)
         self.device = self.engine.device
         if loader.device != self.device:
             raise ValueError(f"loader on {loader.device}, trainer on {self.device}")
@@ -127,20 +152,25 @@ class DecentralizedTrainer:
             else torch.as_tensor(np.asarray(class_groups), dtype=torch.int64, device=self.device)
         )
         self.num_groups = 0 if class_groups is None else int(np.asarray(class_groups).max()) + 1
+        self.forward_fn = forward_fn
 
         if params is None:
+            if init_fn is None:
+                kw = dict(in_dim=in_dim, num_classes=num_classes)
+                if hidden is not None:
+                    kw["hidden"] = tuple(hidden)
+                init_fn = lambda gen: init_mlp(gen, **kw)  # noqa: E731
             gen = torch.Generator().manual_seed(seed)  # CPU draws: same init on every device
-            kw = dict(in_dim=in_dim, num_classes=num_classes)
-            if hidden is not None:
-                kw["hidden"] = tuple(hidden)
             if same_init:
-                p0 = init_mlp(gen, **kw)
+                p0 = init_fn(gen)
                 params = tree_map(lambda x: x.expand(self.num_nodes, *x.shape), p0)
             else:
-                nodes = [init_mlp(gen, **kw) for _ in range(self.num_nodes)]
+                nodes = [init_fn(gen) for _ in range(self.num_nodes)]
                 params = tree_map(lambda *xs: torch.stack(xs), *nodes)
         self.params = tree_map(lambda x: x.to(self.device).contiguous().clone(), params)
         self.momentum = sgd.init(self.params)
+        self.cstate = None if self.compress is None else compress_mod.init(self.params)
+        self._has_hist = self.faulted and self.engine.fault_trace.delay_max > 0
 
     @property
     def graph(self):
@@ -151,6 +181,13 @@ class DecentralizedTrainer:
         """True when ``run_fused`` can execute this trainer's backend."""
         return self.mix_impl in _FUSED_BACKENDS
 
+    def _forward(self, params: PyTree, x: torch.Tensor, *, shared: bool = False) -> torch.Tensor:
+        """(N, B, C) logits of every node: ``x`` is (N, B, ...) per node, or
+        one batch every node sees (``shared``)."""
+        if self.forward_fn is None:
+            return mlp_forward(params, x)
+        return torch.func.vmap(self.forward_fn, in_dims=(0, None if shared else 0))(params, x)
+
     def _sgd_step(self, params: PyTree, momentum: PyTree, x: torch.Tensor,
                   y: torch.Tensor) -> None:
         """One local SGD step on every node, in place on ``params`` and
@@ -158,7 +195,7 @@ class DecentralizedTrainer:
         leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
         with torch.enable_grad():
             tracked = _unflatten(params, leaves)
-            loss = softmax_xent(mlp_forward(tracked, x), y).sum()
+            loss = softmax_xent(self._forward(tracked, x), y).sum()
             grads = torch.autograd.grad(loss, leaves)
         sgd.update_(list(grads), tree_leaves(momentum), tree_leaves(params),
                     lr=self.lr, mu=self.mu)
@@ -171,7 +208,7 @@ class DecentralizedTrainer:
 
     @torch.no_grad()
     def _eval(self, x_test: torch.Tensor, y_test: torch.Tensor):
-        logits = mlp_forward(self.params, x_test)  # (N, T, C)
+        logits = self._forward(self.params, x_test, shared=True)  # (N, T, C)
         accs = accuracy(logits, y_test)
         gaccs = (
             None if self.class_groups is None
@@ -193,6 +230,63 @@ class DecentralizedTrainer:
             consensus=cons, wall_s=time.perf_counter() - t0,
         )
 
+    def _gossip(self, mix: Callable[[PyTree], PyTree], params: PyTree) -> PyTree:
+        """One gossip exchange through ``mix`` (a params -> params closure).
+
+        Without compression this is plain DecAvg. With it, the CHOCO update:
+        every node publishes the top-k of ``params - reference`` (advancing
+        the reference in place), peers mix the references, and each node
+        keeps its residual: ``params + W @ ref - ref``.
+        """
+        if self.compress is None:
+            return mix(params)
+        _, state = compress_mod.compress(params, self.cstate, k_frac=self.compress)
+        ref = self.cstate.reference
+        for r, new in zip(tree_leaves(ref), tree_leaves(state.reference)):
+            r.copy_(new)
+        mixed = mix(ref)
+        return tree_map(lambda p, m, r: (p.float() + (m - r)).to(p.dtype), params, mixed, ref)
+
+    def _gossip_first(self, gossip_first: bool) -> None:
+        """The optional mix before round 0, with the current period's W."""
+        if not gossip_first:
+            return
+        if self.faulted:
+            raise ValueError(
+                "gossip_first does not compose with faults= (there is no "
+                "round index for the pre-round mix to draw masks from)"
+            )
+        with torch.no_grad():
+            self.params = self.engine.mix(self.params)
+
+    @staticmethod
+    def _report(m: RoundMetrics, verbose: bool) -> None:
+        if verbose:
+            accs = m.per_node_acc
+            print(
+                f"round {m.round:4d}  acc mean {accs.mean():.4f} "
+                f"std {accs.std():.4f} min {accs.min():.4f} max {accs.max():.4f}"
+            )
+
+    def _round_faulted(self, r: int, hist: PyTree, delay: torch.Tensor | None) -> None:
+        """One faulted round: train, put dead nodes back to their pre-round
+        params and momentum (exactly as if they never trained), push the
+        straggler ring (every round), and on gossip rounds mix the published
+        snapshots over the surviving renormalized W."""
+        alive = torch.as_tensor(self.engine.fault_trace.alive(r), device=self.device)
+        p_in = tree_map(torch.clone, self.params)
+        o_in = tree_map(torch.clone, self.momentum)
+        self._local_steps(r)
+        with torch.no_grad():
+            self.params = faults_mod.where_alive(alive, self.params, p_in)
+            self.momentum = faults_mod.where_alive(alive, self.momentum, o_in)
+            pub = None
+            if hist is not None:
+                pub, _ = faults_mod.push_and_publish(self.params, hist, r, delay)
+            if self.engine.is_gossip_round(r):
+                self.engine.refresh(r)
+                self.params = self.engine.mix_faulted(self.params, r, pub)
+
     def run(
         self,
         rounds: int,
@@ -200,26 +294,44 @@ class DecentralizedTrainer:
         eval_every: int = 1,
         x_test: np.ndarray | None = None,
         y_test: np.ndarray | None = None,
+        gossip_first: bool = False,
+        verbose: bool = False,
         on_round: Callable[[RoundMetrics], None] | None = None,
     ) -> list[RoundMetrics]:
         """Run communication rounds; returns the per-round metrics history.
 
         Each round trains locally, gossips on the engine's gossip rounds, and
         evaluates on the reference's cadence (``r % eval_every == 0`` or the
-        last round) when ``x_test`` is given. ``on_round`` fires after every
-        evaluated round.
+        last round) when ``x_test`` is given. ``gossip_first`` mixes once
+        before round 0; ``verbose`` prints a line per evaluation.
+        ``on_round`` fires after every evaluated round.
         """
         history: list[RoundMetrics] = []
         t0 = time.perf_counter()
+        self._gossip_first(gossip_first)
+        hist = delay = None
+        if self.faulted:
+            self.engine.fault_trace.ensure(rounds)
+            delay = self.engine.fault_delay()
+            if self._has_hist:
+                hist = faults_mod.init_history(
+                    self.params, self.engine.fault_trace.delay_max + 1
+                )
         for r in range(rounds):
-            self._local_steps(r)
-            with torch.no_grad():
-                self.params = self.engine.mix(self.params, round=r)
+            if self.faulted:
+                self._round_faulted(r, hist, delay)
+            else:
+                self._local_steps(r)
+                if self.engine.is_gossip_round(r):
+                    self.engine.refresh(r)
+                    with torch.no_grad():
+                        self.params = self._gossip(self.engine.mix, self.params)
             if x_test is not None and (r % eval_every == 0 or r == rounds - 1):
                 m = self.eval_round(r, x_test, y_test, t0)
                 history.append(m)
                 if on_round is not None:
                     on_round(m)
+                self._report(m, verbose)
         return history
 
     @staticmethod
@@ -234,18 +346,21 @@ class DecentralizedTrainer:
         eval_every: int = 1,
         x_test: np.ndarray | None = None,
         y_test: np.ndarray | None = None,
+        gossip_first: bool = False,
+        verbose: bool = False,
         on_round: Callable[[RoundMetrics], None] | None = None,
     ) -> list[RoundMetrics]:
         """``run`` from a staged program: on the card, captured CUDA graphs.
 
-        Every schedule period is staged up front (``GossipEngine.program``).
-        Rounds go in chunks that end at the eval rounds (``run``'s cadence);
-        a chunk's batch indices are drawn before it runs (the same draws as
-        ``run``), and each round replays the local-step graph and, on gossip
-        rounds, the mix graph of its period slot. Metrics stream to
-        ``on_round`` after each chunk. Without ``x_test`` the run is one
-        chunk. Supported for the dense, sparse and sparse_pallas backends;
-        others raise (use ``run``). A capture that fails on the card raises.
+        Every schedule period (and, with faults, every round's masks) is
+        staged up front (``GossipEngine.program``). Rounds go in chunks that
+        end at the eval rounds (``run``'s cadence); a chunk's batch indices
+        are drawn before it runs (the same draws as ``run``), and each round
+        replays the local-step graph and, on gossip rounds, the mix graph of
+        its period slot. Metrics stream to ``on_round`` after each chunk.
+        Without ``x_test`` the run is one chunk. Supported for the dense,
+        sparse and sparse_pallas backends; others raise (use ``run``). A
+        capture that fails on the card raises.
         """
         if not self.supports_fused:
             raise ValueError(
@@ -254,9 +369,11 @@ class DecentralizedTrainer:
             )
         if rounds < 1:
             return []
+        program = self.engine.program(rounds, kind=self.mix_impl)
         t0 = time.perf_counter()
+        self._gossip_first(gossip_first)
         steps = self.loader.steps_per_epoch() * self.local_epochs
-        staged = _FusedRounds(self, self.engine.program(rounds, kind=self.mix_impl), steps)
+        staged = _FusedRounds(self, program, steps)
         do_eval = x_test is not None
         ends = self._eval_rounds(rounds, eval_every) if do_eval else [rounds - 1]
         history: list[RoundMetrics] = []
@@ -272,6 +389,7 @@ class DecentralizedTrainer:
                     history.append(m)
                     if on_round is not None:
                         on_round(m)
+                    self._report(m, verbose)
         finally:
             staged.close()
         return history
@@ -295,9 +413,14 @@ class _FusedRounds:
 
     The static buffers are the trainer's own parameter and momentum tensors
     (updated in place: the local steps by SGD, the mix by copying its result
-    back) and ``idx``, the round's (steps, N, B) batch positions, refilled
-    before each round. On the card each piece is captured on first use: the
-    local steps once, the mix once per period slot.
+    back), the compression reference (``trainer.cstate``), ``idx``, the
+    round's (steps, N, B) batch positions, and ``r``, the round itself as an
+    int64 tensor; both are refilled before each round. On a faulted program
+    the graphs also hold the pre-round snapshots ``p_in``/``o_in`` and the
+    straggler ring ``hist``, and read the round's alive and keep rows and the
+    ring's slots through ``r`` on the device. On the card each piece is
+    captured on first use: the local steps once, the mix once per period
+    slot.
     """
 
     def __init__(self, trainer: DecentralizedTrainer, program: decavg.MixingProgram, steps: int):
@@ -308,6 +431,13 @@ class _FusedRounds:
         self.device = dev
         self.idx = torch.zeros((steps, trainer.num_nodes, trainer.loader.batch),
                                dtype=torch.int64, device=dev)
+        self.r = torch.zeros((), dtype=torch.int64, device=dev)
+        self.hist = None
+        if program.faulted:
+            self.p_in = tree_map(torch.empty_like, trainer.params)
+            self.o_in = tree_map(torch.empty_like, trainer.momentum)
+            if program.delay_max > 0:
+                self.hist = faults_mod.init_history(trainer.params, program.delay_max + 1)
         self.local: Staged | None = None
         self.mix: dict[int, Staged] = {}
         self.stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
@@ -317,16 +447,30 @@ class _FusedRounds:
 
     def _local_steps(self) -> None:
         tr = self.trainer
+        if self.program.faulted:
+            _copy_into(self.p_in, tr.params)
+            _copy_into(self.o_in, tr.momentum)
         for s in range(self.steps):
             x, y = tr.loader.batch_at(self.idx[s])
             tr._sgd_step(tr.params, tr.momentum, x, y)
+        if self.program.faulted:
+            with torch.no_grad():
+                alive = self.program.alive_at(self.r)
+                _copy_into(tr.params, faults_mod.where_alive(alive, tr.params, self.p_in))
+                _copy_into(tr.momentum, faults_mod.where_alive(alive, tr.momentum, self.o_in))
+                if self.hist is not None:
+                    faults_mod.push(tr.params, self.hist, self.r)
 
     @torch.no_grad()
     def _mix(self, t: int) -> None:
-        params = self.trainer.params
-        mixed = self.program.apply_period(params, t)
-        for p, m in zip(tree_leaves(params), tree_leaves(mixed)):
-            p.copy_(m)
+        tr = self.trainer
+        if self.program.faulted:
+            pub = (None if self.hist is None
+                   else faults_mod.publish(self.hist, self.r, self.program.f_delay))
+            mixed = self.program.apply_period(tr.params, t, r=self.r, pub=pub)
+        else:
+            mixed = tr._gossip(lambda q: self.program.apply_period(q, t), tr.params)
+        _copy_into(tr.params, mixed)
 
     def _warm_up(self) -> None:
         """Run the round's operations on scratch copies on the capture stream,
@@ -345,7 +489,9 @@ class _FusedRounds:
             if self.program.kind == "sparse_pallas":
                 sparse_gossip.load()
             else:
-                self.program.apply_period(params, 0)
+                self.program.apply_period(params, 0, r=self.r)
+            if tr.compress is not None:
+                compress_mod.compress(params, compress_mod.init(params), k_frac=tr.compress)
         torch.cuda.current_stream(self.device).wait_stream(self.stream)
 
     def _stage(self, fn) -> Staged:
@@ -361,6 +507,7 @@ class _FusedRounds:
     def round(self, r: int, idx: torch.Tensor) -> None:
         """Round ``r`` with batch positions ``idx`` (steps, N, B)."""
         self.idx.copy_(idx)
+        self.r.fill_(r)
         if self.local is None:
             if self.stream is not None:
                 self._warm_up()
@@ -372,3 +519,9 @@ class _FusedRounds:
         if t not in self.mix:
             self.mix[t] = self._stage(lambda: self._mix(t))
         self.mix[t]()
+
+
+def _copy_into(dst: PyTree, src: PyTree) -> None:
+    """Copy ``src``'s leaves into ``dst``'s tensors (static buffers)."""
+    for d, s in zip(tree_leaves(dst), tree_leaves(src)):
+        d.copy_(s)

@@ -1,6 +1,6 @@
 """The port's CUDA code on the card: each kernel against its plain version,
 the mixing backends against each other, ``run_fused``'s captured CUDA
-graphs against the per-round loop, and serving through the flash-attention
+graphs against the per-round loop (faulted and CHOCO rounds too), and serving through the flash-attention
 kernel against the plain attention path.
 
 Every test here is marked ``cuda`` and skips without a card. The file imports
@@ -376,6 +376,61 @@ def test_failed_capture_raises_instead_of_running_eagerly(cuda, monkeypatch):
     with pytest.raises(RuntimeError):
         tr.run_fused(3)
     assert all(torch.equal(a, b) for a, b in zip(before, tree_leaves(tr.params)))
+
+
+# -- slice E on the card: faults and CHOCO through the captured graphs -----------
+
+# Hubs die at round 2, stragglers publish 2-round-old params, edges drop: a
+# mask or a ring slot baked into a captured graph would replay round 0's
+# (everyone alive, slot 0) on every later round.
+FAULTS_FROM_2 = ("churn:p_leave=1.0,p_join=0.0,frac=0.25,start=2@targeted=hubs;"
+                 "straggler:frac=0.2,delay=2;drop:p_edge=0.1")
+
+
+@pytest.mark.parametrize("backend", ["dense", "sparse"])
+@pytest.mark.parametrize("gossip_every", [1, 2])
+def test_faulted_fused_matches_the_loop(cuda, backend, gossip_every):
+    kw = dict(faults=FAULTS_FROM_2, gossip_every=gossip_every)
+    loop, x, y = _trainer(cuda, backend, **kw)
+    fused, _, _ = _trainer(cuda, backend, **kw)
+    loop.run(6, eval_every=3, x_test=x, y_test=y)
+    fused.run_fused(6, eval_every=3, x_test=x, y_test=y)
+    for a, b in zip(tree_leaves(loop.params) + tree_leaves(loop.momentum),
+                    tree_leaves(fused.params) + tree_leaves(fused.momentum)):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+    pre, _, _ = _trainer(cuda, backend, **kw)
+    pre.run_fused(2)
+    dead = torch.as_tensor(~fused.engine.fault_trace.alive(5), device=cuda)
+    assert 0 < int(dead.sum()) < 64
+    for a, b in zip(tree_leaves(pre.params), tree_leaves(fused.params)):
+        assert torch.equal(a[dead], b[dead])  # frozen to the bit from their death
+
+
+@pytest.mark.parametrize("gossip_every", [1, 3])
+def test_choco_fused_matches_the_loop_on_sparse_pallas(cuda, gossip_every):
+    loop, _, _ = _trainer(cuda, "sparse_pallas", gossip_every=gossip_every, compress=0.25)
+    fused, _, _ = _trainer(cuda, "sparse_pallas", gossip_every=gossip_every, compress=0.25)
+    reset_launches()
+    fused.run_fused(7)
+    torch.cuda.synchronize()
+    gossip_rounds = sum(fused.engine.is_gossip_round(r) for r in range(7))
+    assert LAUNCHES["sparse_gossip_blocked"] == 4 * gossip_rounds  # the references' 4 leaves
+    loop.run(7)
+    for a, b in zip(tree_leaves(loop.params) + tree_leaves(loop.cstate.reference),
+                    tree_leaves(fused.params) + tree_leaves(fused.cstate.reference)):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+def test_choco_full_k_on_the_gossip_mix_kernel_is_decavg(cuda):
+    base, _, _ = _trainer(cuda, "pallas")
+    comp, _, _ = _trainer(cuda, "pallas", compress=1.0)
+    base.run(4)
+    reset_launches()
+    comp.run(4)
+    torch.cuda.synchronize()
+    assert LAUNCHES["gossip_mix"] == 4 * 4  # 4 leaves a gossip round
+    for a, b in zip(tree_leaves(base.params), tree_leaves(comp.params)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
 
 
 # -- flash attention and serving (slice C) -----------------------------------

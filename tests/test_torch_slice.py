@@ -92,12 +92,18 @@ def test_same_init_starts_every_node_equal(data):
 
 
 def test_compress_and_faults_are_not_ported(data):
+    """(Named before slice E ported both options.) Each option now builds a
+    trainer, and the two refuse each other, as in the reference."""
     ds, parts = data
     loader = NodeLoader(ds.x_train, ds.y_train, parts, batch_size=BATCH, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice E"):
-        DecentralizedTrainer("ba:m=2", loader, compress=0.1, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice E"):
-        DecentralizedTrainer("ba:m=2", loader, faults="churn:p_leave=0.1", device="cpu")
+    compressed = DecentralizedTrainer("ba:m=2", loader, compress=0.1, in_dim=DIM, device="cpu")
+    assert compressed.compress == 0.1 and compressed.cstate is not None
+    faulted = DecentralizedTrainer("ba:m=2", loader, faults="churn:p_leave=0.1", in_dim=DIM,
+                                   device="cpu")
+    assert faulted.faulted and faulted.engine.fault_trace.n == N
+    with pytest.raises(ValueError, match="do not compose with compress"):
+        DecentralizedTrainer("ba:m=2", loader, compress=0.1, faults="churn:p_leave=0.1",
+                             in_dim=DIM, device="cpu")
 
 
 @pytest.mark.parametrize("preset", ["smoke", "paper"])
@@ -144,12 +150,16 @@ def test_records_keyed_as_the_reference(tmp_path, spec):
 
 
 def test_runner_rejects_what_is_not_ported(tmp_path):
+    """The lm executor is still slice D's. A faulted spec, which slice E
+    ported, completes, and so does a sweep over two processes."""
     store = ResultsStore(str(tmp_path / "r.jsonl"))
     faulted = ExperimentSpec("ring:n=6", faults="churn:p_leave=0.1", **TINY)
-    with pytest.raises(NotImplementedError, match="faults: slice E"):
-        runner.run_spec(faulted, store, device="cpu")
+    out = runner.run_spec(faulted, store, device="cpu")
+    assert out["status"] == "completed" and out["final"]["faults"] == "churn:p_leave=0.1"
+    assert all("alive_count" in r for r in store.curves(faulted.run_id))
     lm = ExperimentSpec("ring:n=4", model={"kind": "lm"}, **TINY)
     out = runner.run_spec(lm, store, raise_on_error=False, device="cpu")
     assert out["status"] == "failed" and "slice D" in out["error"]
-    with pytest.raises(NotImplementedError, match="processes"):
-        runner.run_sweep([lm], str(tmp_path / "s.jsonl"), processes=2, device="cpu")
+    tiny = ExperimentSpec("ring:n=6", model=NARROW, **TINY)
+    summary = runner.run_sweep([lm, tiny], str(tmp_path / "s.jsonl"), processes=2, device="cpu")
+    assert summary["ran"] == 2 and summary["failed"] == [lm.run_id]

@@ -101,6 +101,40 @@ carries on:
                backend's CHOCO run (phase 9's criterion); one CHOCO round's
                device time (top-k plus mix) at both sizes.
 
+16. lm       -- LLM cohorts, reduced llama3.2-1b members (f32): the lm_smoke
+               preset through run_sweep (6 runs, fused dense; its
+               lm_gossip_spreads check printed, not asserted); the ring:n=4
+               run on dense, pallas (loop) and sparse_pallas, loop and fused,
+               with compress off and 0.25: loop vs fused within 1e-6, the
+               backends within 1e-5 over 3 rounds with compress off (the
+               6-round gap printed), gossip_mix and the
+               blocked kernel launched once per leaf per gossip round, and
+               both held to W @ P on the 12 trained leaves (N=4, f32); hubs
+               killed at round 0 on BA N=8: their params and both moments
+               bit-unchanged, loop and fused;
+17. lm_full  -- llama3.2-1b at full width (16 layers, d_model 2048, bf16,
+               1.498 B parameters a member), 2 members on a ring, 4 steps,
+               through python -m repro_torch.launch.train --full-scale on
+               pallas (the loop, gossip_mix) and sparse_pallas (fused, the
+               blocked kernel), CHOCO on (auto: 0.1), lr 3e-5: exit 0, finite
+               records, 12 launches a gossip round, the loss falls from the
+               first step to the last; peak memory and rounds/s printed;
+               then one full-width round split on the device into
+               forward+backward, AdamW, CHOCO (and its mix alone) and the
+               rest, the references' gossip through gossip_mix, the blocked
+               kernel and torch.matmul beside the bytes bound, both kernels
+               held to W @ P on the 12 f32 references (N=2, D up to 268.4 M;
+               the blocked kernel's one block has 6 padding rows) and on
+               uniform rows of the widest leaf's shape, and the
+               fused path's full-width round (sparse_pallas, CUDA graphs);
+18. route    -- python -m repro_torch.experiments.serve_eval with its
+               defaults (train a star cohort, checkpoint, params-only
+               restore, route): router_beats_round_robin and the serve
+               accuracies printed.
+
+The card's name and power limit (nvidia-smi) stand beside the numbers of
+phases 17 and 18.
+
 The line before the last is a JSON object with one entry per kernel (its
 launches: those of every path above that runs it, each path's counts set to
 0 just before it and read just after); the last line is {"ok": true,
@@ -112,6 +146,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -165,6 +200,18 @@ CHOCO_K = 0.25
 # bf16 rounding boundary (1 ulp = 2^-8 relative); logits are about N(0, 1)
 # at this init, with maxima near 5.
 SERVE_LOGIT_TOL = 0.1
+# Slice D: the reduced LM runs of phase 16 (the lm_smoke preset's member,
+# batch and seq), its fault spec (a quarter of the BA hubs dead from round
+# 0), and the full-width runs of phase 17.
+LM_TOPOLOGY = "ring:n=4"
+LM_FAULTS = "churn:p_leave=1.0,p_join=0.0,frac=0.25@targeted=hubs"
+LM_FULL_STEPS = 4
+# The full-width runs' learning rate. The CLI's default, 3e-4 under the
+# cosine schedule with no warmup, overshoots a freshly drawn full-width
+# member from its second AdamW step (`tools/lm_full_probe.py` runs the
+# default and a same-batch probe of both rates); 3e-5 trains it.
+LM_FULL_LR = 3e-5
+LM_BACKEND_ROUNDS = 3
 
 
 def phase(name: str, msg: str) -> None:
@@ -545,10 +592,15 @@ def main() -> int:
     # 14-15. slice E: faults and CHOCO compressed gossip
     faults_main_path(dev, kind)
     choco_launches = compress_main_path(dev, kind)
+    # 16-18. slice D: LLM-cohort training, then routing over a trained cohort
+    lm_launches, lm_err = lm_main_path(dev)
+    full_launches, full_err = lm_full_width(dev, smi)
+    route_cli(smi)
     path_launches = {**large_n_launches, "gossip_mix": launches["gossip_mix"],
                      "flash_attention": flash_launches}
-    for name, n in choco_launches.items():
-        path_launches[name] += n
+    for part in (choco_launches, lm_launches, full_launches):
+        for name, n in part.items():
+            path_launches[name] += n
 
     def entry(name, source, replaces, t, err):
         return {
@@ -563,10 +615,11 @@ def main() -> int:
               "src/repro/kernels/gossip_mix.py:106",
               {"ms": t_kernel, "plain_ms": t_plain, "bound_ms": bound,
                "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": t_lib},
-              main_err),
+              max(main_err, lm_err["gossip_mix"], full_err["gossip_mix"])),
         entry("sparse_gossip_blocked", "src/repro_torch/kernels/csrc/sparse_gossip.cu",
               "src/repro/kernels/sparse_gossip.py:129", sparse_times["sparse_gossip_blocked"],
-              sparse_err["sparse_gossip_blocked"]),
+              max(sparse_err["sparse_gossip_blocked"], lm_err["sparse_gossip_blocked"],
+                  full_err["sparse_gossip_blocked"])),
         entry("sparse_gossip", "src/repro_torch/kernels/csrc/sparse_gossip.cu",
               "src/repro/kernels/sparse_gossip.py:196", sparse_times["sparse_gossip"],
               sparse_err["sparse_gossip"]),
@@ -1359,6 +1412,391 @@ def serve_cli() -> None:
         phase("cli", line)
     if res.returncode != 0 or "generated (8, 48)" not in res.stdout:
         fail(f"python -m repro_torch.launch.serve exited {res.returncode}:\n{res.stderr[-3000:]}")
+
+
+# -- 16-18. slice D: LLM-cohort training and cohort routing --------------------
+
+def lm_cfg_reduced():
+    """The reduced llama3.2-1b of the lm_smoke preset's runs (f32)."""
+    from repro_torch.configs import base as cfgbase
+
+    cfg = cfgbase.get("llama3.2-1b")
+    return dataclasses.replace(cfg.reduced(), param_dtype="float32", optimizer=cfg.optimizer)
+
+
+def lm_trainer(dev, backend: str, topology_spec: str = LM_TOPOLOGY, nodes: int = 4, **kw):
+    from repro_torch.train.trainer import LMCohortTrainer
+
+    return LMCohortTrainer(topology_spec, lm_cfg_reduced(), nodes=nodes, batch=2, seq=32,
+                           lr=1e-3, backend=backend, device=dev, **kw)
+
+
+def lm_mix_checks(topology_spec: str, leaves: list, dev) -> dict[str, float]:
+    """gossip_mix and the blocked kernel on each (N, size) view of ``leaves``
+    against the plain f32 ``W @ P`` (``gossip_mix_ref``) of the topology's
+    decavg W, one leaf at a time, each output freed before the next (a
+    full-width leaf is 2.1 GB); fails past TOL. Returns each kernel's max
+    abs error."""
+    from repro_torch.core import sparse, topology
+    from repro_torch.kernels import gossip_mix as gm
+    from repro_torch.kernels import sparse_gossip as sg
+
+    csr = sparse.csr_from_graph(topology.make(topology_spec))
+    w = torch.as_tensor(sparse.csr_to_dense(csr), device=dev)
+    b = sparse.block_ell_from_csr(csr)
+    idx, val = torch.as_tensor(b.idx, device=dev), torch.as_tensor(b.val, device=dev)
+    errs = {"gossip_mix": 0.0, "sparse_gossip_blocked": 0.0}
+    for leaf in leaves:
+        p = leaf.reshape(leaf.shape[0], -1)
+        want = gm.gossip_mix_ref(w, p)
+        for name, fn in (("gossip_mix", gm.gossip_mix),
+                         ("sparse_gossip_blocked",
+                          lambda _, q: sg.gossip_mix_sparse_blocked(idx, val, q))):
+            got = fn(w, p)
+            err = float(got.sub_(want).abs_().max())  # in place: no third leaf-sized buffer
+            del got
+            if not err <= TOL[p.dtype]:
+                fail(f"{name} on {topology_spec} leaf {tuple(p.shape)} {p.dtype}: max_abs_err "
+                     f"{err} > {TOL[p.dtype]}")
+            errs[name] = max(errs[name], err)
+        del want
+    return errs
+
+
+def lm_main_path(dev) -> tuple[dict[str, int], dict[str, float]]:
+    """Phase 16; returns each kernel's launches on the reduced LM paths and
+    its max abs error against the plain version at their shapes."""
+    from repro_torch.experiments import analysis, presets, runner
+    from repro_torch.experiments.store import ResultsStore
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.tree import tree_leaves
+
+    # The lm_smoke preset: 6 runs, fused dense.
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "lm_smoke.jsonl")
+        t0 = time.perf_counter()
+        summary = runner.run_sweep(presets.get_preset("lm_smoke"), path)
+        wall = time.perf_counter() - t0
+        store = ResultsStore(path)
+        if summary["failed"]:
+            errors = [r for r in store.records()
+                      if r.get("kind") == "run_end" and r.get("status") != "completed"]
+            fail(f"lm_smoke runs failed: {errors}")
+        finals = store.finals()
+        if not all(f["final"]["fused"] and math.isfinite(f["final"]["loss"])
+                   for f in finals.values()):
+            fail("lm_smoke: a run was not fused or ended with a non-finite loss")
+        checks = analysis.qualitative_checks(analysis.summarize(store))
+        phase("lm", f"lm_smoke preset: {len(finals)} runs, all fused, in {wall:.2f} s; " + json.dumps(
+            {k: checks.get(k) for k in ("lm_gossip_spreads", "lm_gossip_g2_token_spread",
+                                        "lm_isolated_g2_token_spread")})
+            + " (printed, not asserted: the port's init draws differ from JAX's)")
+
+    launches = {"gossip_mix": 0, "sparse_gossip_blocked": 0}
+    rounds = 6
+    out = {}
+    for k in (None, CHOCO_K):
+        for backend, fused in (("dense", False), ("dense", True), ("pallas", False),
+                               ("sparse_pallas", False), ("sparse_pallas", True)):
+            tr = lm_trainer(dev, backend, compress=k)
+            reset_launches()
+            hist = (tr.run_fused if fused else tr.run)(rounds, eval_every=rounds)
+            torch.cuda.synchronize()
+            n_leaves = len(tree_leaves(tr.params))
+            name = {"pallas": "gossip_mix", "sparse_pallas": "sparse_gossip_blocked"}.get(backend)
+            if name is not None:
+                if LAUNCHES[name] != n_leaves * rounds:
+                    fail(f"lm {backend} fused={fused} compress={k}: {name} launched "
+                         f"{LAUNCHES[name]} times, want {n_leaves} leaves x {rounds} rounds")
+                launches[name] += LAUNCHES[name]
+            if not math.isfinite(hist[-1]["loss"]):
+                fail(f"lm {backend} fused={fused} compress={k}: loss {hist[-1]['loss']}")
+            out[(k, backend, fused)] = ([x.clone() for x in tree_leaves(tr.params)],
+                                        hist[-1]["loss"])
+            del tr
+
+    def diff(a, b):
+        return max(float((x - y).abs().max()) for x, y in zip(out[a][0], out[b][0]))
+
+    for k in (None, CHOCO_K):
+        for backend in ("dense", "sparse_pallas"):
+            d = diff((k, backend, False), (k, backend, True))
+            dl = abs(out[(k, backend, False)][1] - out[(k, backend, True)][1])
+            phase("lm", f"{LM_TOPOLOGY} {backend} compress={k}, {rounds} rounds: loop vs fused "
+                        f"params max abs diff {d:.3e}, loss {dl:.3e} (tol 1e-6)")
+            if not (d <= 1e-6 and dl <= 1e-6):
+                fail(f"lm {backend} compress={k}: loop and fused disagree")
+    # The backends sum W @ P in different orders (cuBLAS f32, 3xTF32 wgmma,
+    # the blocked kernel), about 1e-7 apart a round; AdamW's normalized steps
+    # grow that round by round. They are held at 1e-5 over the reference's
+    # own parity horizon, 3 rounds, and the 6-round gap is printed.
+    short = {}
+    for backend, fused in (("dense", True), ("pallas", False), ("sparse_pallas", True)):
+        tr = lm_trainer(dev, backend, compress=None)
+        (tr.run_fused if fused else tr.run)(LM_BACKEND_ROUNDS, eval_every=LM_BACKEND_ROUNDS)
+        short[backend] = [x.clone() for x in tree_leaves(tr.params)]
+        del tr
+    for other in (("pallas", False), ("sparse_pallas", True)):
+        d = max(float((x - y).abs().max()) for x, y in zip(short["dense"], short[other[0]]))
+        d6 = diff((None, "dense", True), (None,) + other)
+        phase("lm", f"{LM_TOPOLOGY} compress off: dense vs {other[0]} params max abs diff "
+                    f"{d:.3e} after {LM_BACKEND_ROUNDS} rounds (tol 1e-5), {d6:.3e} after "
+                    f"{rounds} (printed)")
+        if not d <= 1e-5:
+            fail(f"lm: dense and {other[0]} disagree by {d}")
+    phase("lm", f"launches a gossip round = the member's {n_leaves} leaves, for gossip_mix "
+                f"(pallas, loop) and the blocked kernel (sparse_pallas, loop and fused)")
+    errs = lm_mix_checks(LM_TOPOLOGY, out[(None, "pallas", False)][0], dev)
+    phase("lm", f"both kernels on the {n_leaves} trained leaves of {LM_TOPOLOGY} (f32) against "
+                f"W @ P: " + ", ".join(f"{k} max_abs_err={v:.3e}" for k, v in errs.items())
+                + f" (tol {TOL[torch.float32]:g})")
+
+    # Hubs killed at round 0 and never back: their params and both moments
+    # stay bit-equal to their pre-run values, on the loop and the fused path.
+    for fused in (False, True):
+        tr = lm_trainer(dev, "dense", "ba:n=8,m=2", nodes=8, faults=LM_FAULTS)
+        trace = tr.engine.fault_trace
+        trace.ensure(rounds)
+        dead = np.flatnonzero(~trace.alive_matrix(rounds).any(axis=0))
+        before = [x.clone() for x in tree_leaves(tr.params) + tree_leaves(tr.opt_state)]
+        (tr.run_fused if fused else tr.run)(rounds, eval_every=rounds)
+        after = tree_leaves(tr.params) + tree_leaves(tr.opt_state)
+        frozen = all(torch.equal(a[dead], b[dead]) for a, b in zip(before, after)
+                     if a.dim() and a.shape[0] == 8)
+        alive_moved = any(not torch.equal(a, b) for a, b in zip(before, after))
+        phase("lm", f"ba:n=8,m=2 dense fused={fused} under {LM_FAULTS}: dead nodes "
+                    f"{dead.tolist()} params and moments bit-unchanged: {frozen}; the rest "
+                    f"trained: {alive_moved}")
+        if dead.size == 0 or not frozen or not alive_moved:
+            fail("lm faults: dead nodes not frozen, or nobody died, or nobody trained")
+    return launches, errs
+
+
+def lm_full_round_split(dev, smi: str) -> dict[str, float]:
+    """Phase 17, in process: one full-width round on backend pallas with
+    CHOCO (k=0.1) split on the device (CUDA events): the forward and backward
+    of both members, the AdamW step, the CHOCO gossip (top-k, reference,
+    gossip_mix, residual) and within it the mix alone, and the rest. Then
+    both kernels on the f32 references, timed and checked; returns their
+    max abs errors."""
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.optim import adamw
+    from repro_torch.train.trainer import LMCohortTrainer, _unflatten
+    from repro_torch.tree import tree_leaves
+
+    torch.cuda.reset_peak_memory_stats()
+    tr = LMCohortTrainer("ring", cfgbase.get("llama3.2-1b"), nodes=2, backend="pallas",
+                         device=dev)
+    tr._begin(4)
+
+    def ev():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    times = []
+    for r in range(2):  # round 0 pays lazy initialisation; round 1 is reported
+        e0 = ev()
+        toks, labels = tr._batch(r)
+        lr = tr._sched(r).to(dev)
+        e1 = ev()
+        leaves = [p.detach().requires_grad_(True) for p in tree_leaves(tr.params)]
+        with torch.enable_grad():
+            losses = tr._per_node(_unflatten(tr.params, leaves), toks, labels, tr._loss_fn)
+            grads = torch.autograd.grad(losses.sum(), leaves)
+        del leaves
+        e2 = ev()
+        adamw.update_(list(grads), tr.opt_state, tr.params, lr=lr)
+        del grads
+        e3 = ev()
+        tr.engine.refresh(r)
+        tr._gossip(lambda q: tr.engine.mix([q])[0])
+        e4 = ev()
+        with torch.no_grad():
+            for ref in tree_leaves(tr.cstate.reference):
+                tr.engine.mix([ref])
+        e5 = ev()
+        torch.cuda.synchronize()
+        times.append((e0.elapsed_time(e1), e1.elapsed_time(e2), e2.elapsed_time(e3),
+                      e3.elapsed_time(e4), e4.elapsed_time(e5), e0.elapsed_time(e4)))
+    rest, fwd_bwd, opt, choco, mix, total = times[-1]
+    peak = torch.cuda.max_memory_allocated()
+    n_params = tr.member_params
+    phase("lm_full", f"one full-width round on the device ({smi}), llama3.2-1b x 2 members, "
+                     f"pallas, compress {tr.compress}: total {total:.2f} ms = forward+backward "
+                     f"{fwd_bwd:.2f} + AdamW {opt:.2f} + CHOCO {choco:.2f} (top-k, references, "
+                     f"residual; its gossip_mix alone, timed again after: {mix:.2f}) + rest (batch "
+                     f"to the card, LR) {rest:.2f}; round 0 (lazy initialisation) "
+                     f"{times[0][5]:.2f} ms")
+    phase("lm_full", f"in-process peak device memory {peak / 2**30:.3f} GiB ({peak / 1e9:.2f} GB) "
+                     f"({smi}); reckoned persistent state: bf16 params "
+                     f"{2 * n_params * 2 / 1e9:.2f} GB, f32 moments {2 * 2 * n_params * 4 / 1e9:.2f} "
+                     f"GB, f32 CHOCO references {2 * n_params * 4 / 1e9:.2f} GB")
+    errs = lm_full_mix_times(dev, tree_leaves(tr.cstate.reference), smi)
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return errs
+
+
+def lm_full_fused_round(dev, smi: str) -> None:
+    """Phase 17: full-width rounds of the fused path (sparse_pallas, CHOCO
+    0.1): each round's local step and gossip replayed as CUDA graphs. Round
+    0 runs eagerly, round 1 is captured; rounds 2-5 are timed, each from its
+    buffers' refill to its last replayed kernel (CUDA events)."""
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.train.trainer import LMCohortTrainer, _LMFusedRounds
+
+    tr = LMCohortTrainer("ring", cfgbase.get("llama3.2-1b"), nodes=2, backend="sparse_pallas",
+                         device=dev)
+    rounds = 6
+    tr._begin(rounds)
+    staged = _LMFusedRounds(tr, tr.engine.program(rounds, kind="sparse_pallas"))
+    batches = [tr._batch(r) for r in range(rounds)]
+    times = []
+    try:
+        for r, (toks, labels) in enumerate(batches):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            staged.round(r, toks, labels)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+    finally:
+        staged.close()
+    phase("lm_full", f"fused full-width rounds (sparse_pallas, compress {tr.compress}, graphs "
+                     f"replayed): {spread(times[2:])} ms a round (rounds 2-{rounds - 1}); round 0 "
+                     f"eager {times[0]:.2f} ms, round 1 with its captures {times[1]:.2f} ms; "
+                     f"loss {staged.loss:.4f}; {smi}")
+    del staged, tr, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lm_full_mix_times(dev, refs: list, smi: str) -> dict[str, float]:
+    """Phase 17: one gossip of the full-width f32 CHOCO references (12
+    leaves, 2 x 1.498 B values) on the device: gossip_mix, the blocked kernel
+    on ring:n=2's one padded block, torch.matmul, and the bytes bound; then
+    both kernels against the plain version, leaf by leaf. Returns their max
+    abs errors."""
+    from repro_torch.core import sparse, topology
+    from repro_torch.kernels import gossip_mix as gm
+    from repro_torch.kernels import sparse_gossip as sg
+
+    csr = sparse.csr_from_graph(topology.make("ring:n=2"))
+    w = torch.as_tensor(sparse.csr_to_dense(csr), device=dev)
+    b = sparse.block_ell_from_csr(csr)
+    idx, val = torch.as_tensor(b.idx, device=dev), torch.as_tensor(b.val, device=dev)
+    flat = [r.reshape(2, -1) for r in refs]
+    runs = {
+        "gossip_mix": lambda: [gm.gossip_mix(w, p) for p in flat],
+        "blocked kernel": lambda: [sg.gossip_mix_sparse_blocked(idx, val, p) for p in flat],
+        "torch.matmul": lambda: [torch.matmul(w, p) for p in flat],
+    }
+    got = {name: time_ms(fn, reps=3, warmup=1) for name, fn in runs.items()}
+    nbytes = 2 * sum(p.numel() * p.element_size() for p in flat)
+    phase("lm_full", "full-width gossip of the f32 references (12 leaves, N=2), on the device: "
+                     + ", ".join(f"{k} {v:.2f} ms" for k, v in got.items())
+                     + f"; bytes bound {nbytes / HBM_BYTES_PER_S * 1e3:.2f} ms "
+                       f"({nbytes / 1e9:.2f} GB); {smi}")
+    errs = lm_mix_checks("ring:n=2", refs, dev)
+    phase("lm_full", "both kernels on the 12 full-width f32 references (N=2, D up to "
+                     f"{max(r[0].numel() for r in refs)}) against W @ P: "
+                     + ", ".join(f"{k} max_abs_err={v:.3e}" for k, v in errs.items())
+                     + f" (tol {TOL[torch.float32]:g})")
+    # The members start from one draw, so the references' two rows are
+    # nearly equal and their mean nearly exact; uniform rows at the widest
+    # leaf's shape exercise the arithmetic as well as the indexing.
+    gen = torch.Generator(device=dev).manual_seed(0)
+    widest = max(refs, key=lambda r: r.numel())
+    rand = lm_mix_checks("ring:n=2", [torch.rand(widest.shape, generator=gen, device=dev) * 2 - 1],
+                         dev)
+    phase("lm_full", f"both kernels on uniform [-1, 1) rows of shape {tuple(widest.shape)} (f32) "
+                     "against W @ P: " + ", ".join(f"{k} max_abs_err={v:.3e}" for k, v in rand.items())
+                     + f" (tol {TOL[torch.float32]:g})")
+    return {k: max(v, rand[k]) for k, v in errs.items()}
+
+
+def lm_full_width(dev, smi: str) -> tuple[dict[str, int], dict[str, float]]:
+    """Phase 17; returns each kernel's launches on the two full-width runs
+    and its max abs error against the plain version at their shapes."""
+    from repro_torch.experiments.store import ResultsStore
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {"gossip_mix": 0, "sparse_gossip_blocked": 0}
+    leaves = 12  # embed, lm_head, final_norm, and 9 stacked leaves of the layer groups
+    for backend, name, path in (("pallas", "gossip_mix", "loop"),
+                                ("sparse_pallas", "sparse_gossip_blocked", "fused")):
+        with tempfile.TemporaryDirectory() as tmp:
+            store_path = str(Path(tmp) / "train.jsonl")
+            cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "llama3.2-1b",
+                   "--full-scale", "--nodes", "2", "--topology", "ring", "--steps",
+                   str(LM_FULL_STEPS), "--mix-backend", backend, "--store", store_path,
+                   "--lr", str(LM_FULL_LR)]
+            tag = f"{backend}, lr {LM_FULL_LR:g}"
+            t0 = time.perf_counter()
+            res = subprocess.run(cmd, capture_output=True, text=True, timeout=900, cwd=ROOT,
+                                 env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+            wall = time.perf_counter() - t0
+            for line in res.stdout.strip().splitlines():
+                phase("lm_full", f"[{tag}] {line}")
+            if res.returncode != 0:
+                fail(f"{' '.join(cmd[1:])} exited {res.returncode}:\n{res.stderr[-4000:]}")
+            store = ResultsStore(store_path)
+            (rid, end), = store.finals().items()
+            records, final = store.curves(rid), end["final"]
+            keys = ("loss", "lr", "g2_token_spread", "wall_s")
+            finite = all(math.isfinite(r[k]) for r in records for k in keys) and all(
+                math.isfinite(a) for r in records for a in r["domain_acc"]) and math.isfinite(
+                final["consensus_mean"])
+            got = dict(re.findall(r"(\w+)=(\d+)", res.stdout.split("kernel launches", 1)[1]
+                                  .splitlines()[0]))
+            n = int(got[name])
+            launches[name] += n
+            first, last = records[0], records[-1]
+            peak = re.search(r"peak device memory ([\d.]+) GiB", res.stdout).group(1)
+            phase("lm_full", f"[{tag}] {path}, fused={final['fused']}, compress "
+                             f"{final['compress']}, members {final['members_m']} M: loss "
+                             f"{first['loss']:.4f} (round {first['round']}) -> {last['loss']:.4f} "
+                             f"(round {last['round']}); {name} launches {n} = {leaves} leaves x "
+                             f"{LM_FULL_STEPS} rounds; peak {peak} GiB; "
+                             f"{LM_FULL_STEPS / end['wall_s']:.3f} rounds/s with set-up "
+                             f"({end['wall_s']:.2f} s in run_spec, {wall:.2f} s for the process); "
+                             f"{smi}")
+            if not finite:
+                fail(f"[{backend}] a full-width record is not finite: {records} {final}")
+            if n != leaves * LM_FULL_STEPS or final["fused"] != (path == "fused"):
+                fail(f"[{backend}] {name} launched {n} times (want {leaves * LM_FULL_STEPS}), "
+                     f"fused {final['fused']}")
+            if final["compress"] != 0.1 or final["members_m"] != 1498.48:
+                fail(f"[{backend}] compress {final['compress']}, members {final['members_m']} M")
+            if not last["loss"] < first["loss"]:
+                fail(f"[{tag}] the loss did not fall: {first['loss']} -> {last['loss']}")
+    errs = lm_full_round_split(dev, smi)
+    lm_full_fused_round(dev, smi)
+    return launches, errs
+
+
+def route_cli(smi: str) -> None:
+    """Phase 18: the serve-eval CLI with its defaults, on the card."""
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.experiments.serve_eval"], capture_output=True,
+        text=True, timeout=600, cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+    )
+    wall = time.perf_counter() - t0
+    try:
+        summary = json.loads(res.stdout)
+    except json.JSONDecodeError:
+        fail(f"serve_eval exited {res.returncode} without its summary:\n{res.stderr[-3000:]}")
+    if res.returncode not in (0, 1) or summary["device"] != torch.cuda.get_device_name(0):
+        fail(f"serve_eval exited {res.returncode} on {summary.get('device')}")
+    phase("route", f"serve_eval (star:n=6, 60 rounds, reduced llama3.2-1b) in {wall:.2f} s: "
+                   f"router_beats_round_robin {summary['checks']['router_beats_round_robin']}, "
+                   f"serve_acc {json.dumps(summary['serve_acc'])}, hub_share_foreign "
+                   f"{summary['hub_share_foreign']:.4f}, g2_token_spread "
+                   f"{summary['g2_token_spread']:.6f}; exit {res.returncode}; {smi}")
 
 
 if __name__ == "__main__":

@@ -2,7 +2,8 @@
 so a checkpoint written by either package loads in the other.
 
 The format: one npz member per leaf, keyed by the ``/``-joined path of dict
-keys and list indices; a bf16 leaf is stored as its ``uint16`` bit pattern,
+keys, list indices and ``.``-prefixed NamedTuple fields (an optimizer state's
+``.mu``, say, as JAX names a NamedTuple's attribute); a bf16 leaf is stored as its ``uint16`` bit pattern,
 beside a ``__bf16__<key>`` marker; ``__meta__`` holds a JSON object whose
 ``step`` is the saved step (the reference also writes its treedef there,
 which neither package reads). ``None`` leaves hold nothing.
@@ -31,6 +32,9 @@ def _items(tree: PyTree, prefix: tuple[str, ...] = ()):
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from _items(tree[k], prefix + (str(k),))
+    elif _is_namedtuple(tree):
+        for k, v in zip(tree._fields, tree):
+            yield from _items(v, prefix + (f".{k}",))
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
             yield from _items(v, prefix + (str(i),))
@@ -53,7 +57,7 @@ def save(path: str, tree: PyTree, *, step: int | None = None) -> None:
     np.savez(path, __meta__=json.dumps({"step": step}), **flat)
 
 
-def _load(data, key: str, like: torch.Tensor) -> torch.Tensor:
+def _load(data, key: str, like: torch.Tensor, device=None) -> torch.Tensor:
     arr = data[key]
     if f"__bf16__{key}" in data.files:
         t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
@@ -61,7 +65,11 @@ def _load(data, key: str, like: torch.Tensor) -> torch.Tensor:
         t = torch.from_numpy(np.array(arr))
     if tuple(t.shape) != tuple(like.shape):
         raise ValueError(f"shape mismatch at {key}: {tuple(t.shape)} vs {tuple(like.shape)}")
-    return t.to(device=like.device, dtype=like.dtype)
+    return t.to(device=like.device if device is None else device, dtype=like.dtype)
+
+
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
 
 
 def _fill(like: PyTree, fn, prefix: tuple[str, ...] = ()) -> PyTree:
@@ -69,6 +77,9 @@ def _fill(like: PyTree, fn, prefix: tuple[str, ...] = ()) -> PyTree:
         return None
     if isinstance(like, dict):
         return {k: _fill(v, fn, prefix + (str(k),)) for k, v in like.items()}
+    if _is_namedtuple(like):
+        return type(like)(*(_fill(v, fn, prefix + (f".{k}",))
+                            for k, v in zip(like._fields, like)))
     if isinstance(like, (list, tuple)):
         return [_fill(v, fn, prefix + (str(i),)) for i, v in enumerate(like)]
     return fn(_SEP.join(prefix), like)
@@ -88,10 +99,13 @@ def restore(path: str, like: PyTree) -> tuple[PyTree, int | None]:
     return _fill(like, lambda key, leaf: _load(data, key, leaf)), meta.get("step")
 
 
-def restore_subtree(path: str, like: PyTree, *, prefix: str) -> tuple[PyTree, int | None]:
+def restore_subtree(path: str, like: PyTree, *, prefix: str,
+                    device: str | torch.device | None = None) -> tuple[PyTree, int | None]:
     """Restore one top-level subtree (e.g. ``prefix="params"``) of a saved
     tree into the structure of ``like``. An npz loads lazily, so the other
-    subtrees (an optimizer's moments) are never read."""
+    subtrees (an optimizer's moments) are never read. ``device`` places the
+    leaves (default: each ``like`` leaf's device), so ``like`` may live on
+    the ``meta`` device and cost no memory."""
     path, data, meta = _open(path)
 
     def one(key: str, leaf: torch.Tensor) -> torch.Tensor:
@@ -101,6 +115,6 @@ def restore_subtree(path: str, like: PyTree, *, prefix: str) -> tuple[PyTree, in
                 f"{key!r} not in checkpoint {path} — available top-level "
                 f"prefixes: {sorted({f.split(_SEP)[0] for f in data.files if not f.startswith('__')})}"
             )
-        return _load(data, key, leaf)
+        return _load(data, key, leaf, device)
 
     return _fill(like, one), meta.get("step")

@@ -10,7 +10,8 @@ package, so every spec keeps its run id).
   runs fail with NotImplementedError until slice F ports that backend.
 - ``churn_smoke``: fault injection: hub kills against leaf kills on BA N=16
   (``hub_kill_hurts_more``).
-- ``lm_smoke``: LLM cohorts — not ported yet (slice D).
+- ``lm_smoke``: LLM cohorts: ring and star gossip against isolation on
+  reduced transformer members (``lm_gossip_spreads``); all runs fused.
 """
 
 from __future__ import annotations

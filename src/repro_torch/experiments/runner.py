@@ -13,8 +13,14 @@ sparse_pallas) unless the spec says ``model={"fused": False}``, and
 ``alive_final``, ``churn_rounds`` and ``recovery_rounds`` in its summary;
 ``model={"compress": k}`` turns on CHOCO gossip.
 
-Not ported yet, and rejected with ``NotImplementedError``: the ``lm``
-executor (slice D).
+The ``lm`` executor (``model={"kind": "lm", ...}``) trains an LLM cohort
+through ``LMCohortTrainer`` on the reference's token streams: reduced
+members with f32 params unless ``model={"full_scale": True}``, which keeps
+the arch's own widths and bf16. It streams loss, lr, ``domain_acc`` and
+``g2_token_spread`` per evaluated round and ends with the reference's
+summary keys (consensus, graph records, ``members_m``, ``backend``,
+``fused``, ``compress``, and under faults ``faults``, ``alive_min`` and
+``alive_final``), plus ``framework`` and ``device``.
 
 ``run_sweep`` skips specs whose run_id already has a completed ``run_end``
 in the store. ``run_id`` is the reference's content hash, so keep the two
@@ -25,6 +31,7 @@ worker writes a private shard that is merged into the store.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 import traceback
@@ -247,13 +254,88 @@ def _run_mlp(spec: ExperimentSpec, emit: Emit, verbose: bool,
     return final
 
 
+def _run_lm(spec: ExperimentSpec, emit: Emit, verbose: bool,
+            device: torch.device) -> dict[str, Any]:
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.train.trainer import LMCohortTrainer
+
+    m = spec.model
+    cfg = cfgbase.get(m.get("arch", "llama3.2-1b"))
+    if not m.get("full_scale", False):
+        cfg = dataclasses.replace(cfg.reduced(), param_dtype="float32", optimizer=cfg.optimizer)
+    n = int(m.get("nodes", 4))
+    trainer = LMCohortTrainer(
+        spec.topology,
+        cfg,
+        nodes=n,
+        batch=int(m.get("batch", 4)),
+        seq=int(m.get("seq", 128)),
+        lr=spec.lr,
+        schedule=m.get("schedule", "cosine"),
+        backend=spec.backend,
+        matrix=spec.matrix,
+        gossip_every=spec.gossip_every,
+        compress=m.get("compress", "auto"),
+        faults=spec.faults,
+        seed=spec.seed,
+        device=device,
+    )
+    if verbose:
+        print(
+            f"arch={cfg.arch_id} members={trainer.member_params / 1e6:.1f}M x {n} nodes "
+            f"topology={trainer.graph.name} backend={trainer.mix_impl} "
+            f"optimizer={cfg.optimizer} schedule={m.get('schedule', 'cosine')} "
+            f"compress={trainer.compress} device={device_name(device)}"
+        )
+    ckpt_every, ckpt_path = int(m.get("ckpt_every", 0)), m.get("ckpt_path", "")
+    if m.get("resume") and ckpt_path:
+        start = trainer.restore(ckpt_path)
+        if verbose:
+            print(f"resumed from {ckpt_path} at round {start}")
+
+    last: dict[str, Any] = {}
+
+    def on_round(rec: dict[str, Any]) -> None:
+        last.clear()
+        last.update(rec)
+        emit(rec)
+
+    # Fused by default, as for mlp; model={"fused": False} opts out, and
+    # backends run_fused does not stage (pallas) take the loop.
+    use_fused = bool(m.get("fused", True)) and trainer.supports_fused
+    run = trainer.run_fused if use_fused else trainer.run
+    run(spec.rounds, eval_every=spec.eval_every, on_round=on_round,
+        ckpt_every=ckpt_every, ckpt_path=ckpt_path, verbose=verbose)
+    cons = trainer.consensus()
+    final: dict[str, Any] = {
+        **last,
+        "consensus_mean": float(cons.mean()) if cons.size else 0.0,
+        "consensus_max": float(cons.max()) if cons.size else 0.0,
+        **_graph_records(trainer.engine, spec.rounds),
+        "members_m": round(trainer.member_params / 1e6, 2),
+        "backend": trainer.mix_impl,
+        "fused": use_fused,
+        "compress": trainer.compress,
+        "framework": "torch",
+        "device": device_name(device),
+    }
+    if trainer.faulted:
+        trace = trainer.engine.fault_trace
+        alive_counts = [int(trace.alive(r).sum()) for r in range(spec.rounds)]
+        final["faults"] = spec.faults
+        final["alive_min"] = min(alive_counts)
+        final["alive_final"] = alive_counts[-1]
+    return final
+
+
+_EXECUTORS = {"mlp": _run_mlp, "lm": _run_lm}
+
+
 def _executor(spec: ExperimentSpec):
-    """The executor for ``spec``, or NotImplementedError for what the port
-    does not run yet."""
     kind = spec.model.get("kind", "mlp")
-    if kind != "mlp":
-        raise NotImplementedError(f"model kind {kind!r}: slice D")
-    return _run_mlp
+    if kind not in _EXECUTORS:
+        raise ValueError(f"unknown model kind {kind!r}; one of {sorted(_EXECUTORS)}")
+    return _EXECUTORS[kind]
 
 
 def run_spec(

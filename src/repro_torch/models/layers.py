@@ -255,7 +255,12 @@ class AttnSpec:
     flash: bool = False
 
 
-def _normal(gen: torch.Generator, shape: tuple[int, ...], scale: float, dtype) -> torch.Tensor:
+def _normal(gen: torch.Generator | None, shape: tuple[int, ...], scale: float,
+            dtype) -> torch.Tensor:
+    """N(0, scale^2) draws from ``gen`` on its device; ``gen=None`` gives a
+    tensor on the ``meta`` device (shape and dtype only, nothing drawn)."""
+    if gen is None:
+        return torch.empty(shape, dtype=dtype, device="meta")
     return torch.randn(shape, generator=gen, device=gen.device).mul_(scale).to(dtype)
 
 

@@ -3,7 +3,7 @@
 
 Public API (plain functions over parameter dicts of tensors):
   init_params(generator, cfg, device=None)       -> params
-  forward(params, cfg, tokens, ...)              -> (logits, moe_aux)
+  forward(params, cfg, tokens, ..., remat=False) -> (logits, moe_aux)
   init_cache(cfg, batch, cache_len, dtype, ...)  -> stacked per-layer caches
   prefill_forward(params, cfg, tokens, cache)    -> (last logits, cache)
   decode_step(params, cfg, token, cache)         -> (logits, cache)
@@ -25,6 +25,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.device import resolve_device
@@ -80,7 +81,7 @@ def _init_norm(cfg: ArchConfig, dtype, device, lead: tuple[int, ...] = ()) -> Py
 
 def _init_layer(gen: torch.Generator, cfg: ArchConfig, spec: LayerSpec, dtype) -> PyTree:
     lead = (cfg.num_groups,)
-    dev = gen.device
+    dev = torch.device("meta") if gen is None else gen.device
     p: PyTree = {"norm1": _init_norm(cfg, dtype, dev, lead),
                  "norm2": _init_norm(cfg, dtype, dev, lead)}
     p["attn"] = L.init_attention(gen, cfg.d_model, _attn_spec(cfg, window=None), dtype, lead)
@@ -92,13 +93,17 @@ def _init_layer(gen: torch.Generator, cfg: ArchConfig, spec: LayerSpec, dtype) -
 def init_params(generator: torch.Generator | int, cfg: ArchConfig, device=None) -> PyTree:
     """The full parameter tree, drawn from ``generator`` (or a seed) on
     ``device`` (None: the card); layer leaves carry the leading group axis.
-    The draws are the port's own: torch cannot give JAX's bits."""
+    The draws are the port's own: torch cannot give JAX's bits. On the
+    ``meta`` device nothing is drawn: the tree holds the shapes and dtypes
+    (the ``like`` of a checkpoint restore)."""
     _check_supported(cfg)
     dev = resolve_device(device)
     gen = generator
-    if not isinstance(gen, torch.Generator):
+    if dev.type == "meta":
+        gen = None
+    elif not isinstance(gen, torch.Generator):
         gen = torch.Generator(device=dev).manual_seed(int(generator))
-    if gen.device.type != dev.type:
+    if gen is not None and gen.device.type != dev.type:
         raise ValueError(f"generator on {gen.device}, params wanted on {dev}")
     dtype = cfg.dtype()
     scale = cfg.d_model**-0.5
@@ -199,17 +204,32 @@ def _apply_group(
 
 
 def _groups(params: PyTree, cfg: ArchConfig, x: torch.Tensor, *, window, cache, memory,
-            positions, flash: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+            positions, flash: bool = False,
+            remat: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Run the layer groups in order (the reference's scan), ``cache`` (a
-    stacked cache or None) updated in place."""
+    stacked cache or None) updated in place. ``remat`` checkpoints each group
+    (no cache): its activations are recomputed in the backward pass instead
+    of kept, as the reference's ``jax.checkpoint`` of the scan body."""
     if "cross" in params or memory is not None:
         raise NotImplementedError(f"encoder memory and cross-attention are {_LATER}")
+    if remat and cache is not None:
+        raise ValueError("remat is for the training forward (cache=None)")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for g in range(cfg.num_groups):
-        x, _, a = _apply_group(
-            _at(params["blocks"], g), x, cfg, window=window, cache=_at(cache, g),
-            cross=None, memory=None, positions=positions, flash=flash,
-        )
+        def group(x, g=g):
+            y, _, a = _apply_group(
+                _at(params["blocks"], g), x, cfg, window=window, cache=_at(cache, g),
+                cross=None, memory=None, positions=positions, flash=flash,
+            )
+            return y, a
+
+        if remat:
+            # No random op runs in a layer, so no RNG state is stashed (that
+            # would also read the generator during graph capture).
+            x, a = torch.utils.checkpoint.checkpoint(
+                group, x, use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, a = group(x)
         aux = aux + a
     return x, aux
 
@@ -231,17 +251,20 @@ def forward(
     prefix_embeds: torch.Tensor | None = None,
     memory: torch.Tensor | None = None,
     window: int | None = None,
+    remat: bool = False,
     last_only: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens: (B, S) int -> (logits (B, S, V) in the param dtype, moe_aux).
-    ``last_only`` gives the last position's logits, (B, V), sliced before the
-    head matmul."""
+    ``remat`` checkpoints each layer group (the training memory policy; the
+    result is the same). ``last_only`` gives the last position's logits,
+    (B, V), sliced before the head matmul. No operation here writes into a
+    parameter or into a tensor autograd saved, so it can be differentiated."""
     if prefix_embeds is not None:
         raise NotImplementedError(f"VLM prefix embeddings are {_LATER}")
     x = params["embed"][tokens]
     positions = torch.arange(x.shape[1], device=x.device)
     x, aux = _groups(params, cfg, x, window=_window(cfg, window), cache=None,
-                     memory=memory, positions=positions)
+                     memory=memory, positions=positions, remat=remat)
     x = L.norm(x, params["final_norm"], cfg.norm)
     if last_only:
         return x[:, -1] @ params["lm_head"], aux

@@ -25,8 +25,12 @@ def init(params: PyTree) -> PyTree:
 
 
 @torch.no_grad()
-def update_(grads: PyTree, momentum: PyTree, params: PyTree, *, lr: float, mu: float) -> None:
-    """One step, in place on ``momentum`` and ``params``."""
+def update_(grads: PyTree, momentum: PyTree, params: PyTree, *, lr: float | torch.Tensor,
+            mu: float) -> None:
+    """One step, in place on ``momentum`` and ``params``: the reference's
+    ``p - lr * m`` in the momentum dtype, stored in the params' dtype. ``lr``
+    may be an f32 0-dim tensor on the device (a schedule's rate in a captured
+    graph)."""
     for g, m, p in zip(tree_leaves(grads), tree_leaves(momentum), tree_leaves(params)):
         m.mul_(mu).add_(g.to(m.dtype))
-        p.sub_(m, alpha=lr)  # bf16 params with f32 momentum: computed in f32, stored in bf16
+        p.sub_(m * lr)

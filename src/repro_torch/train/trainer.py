@@ -1,4 +1,6 @@
-"""Paper-faithful decentralized trainer (DecAvg over a graph of nodes).
+"""Decentralized trainers: the paper's DecAvg over a graph of nodes
+(``DecentralizedTrainer``), and the same over a cohort of transformer LMs
+(``LMCohortTrainer``, below).
 
 One *communication round* (paper §3):
   1. every node runs local SGD-with-momentum steps on its own data,
@@ -54,8 +56,10 @@ from repro_torch.core.topology import Graph, TopologySchedule
 from repro_torch.data.loader import NodeLoader
 from repro_torch.graphs import Staged
 from repro_torch.kernels import sparse_gossip
+from repro_torch.launch import steps as ST
+from repro_torch.models import transformer as TF
 from repro_torch.models.mlp import init_mlp, mlp_forward
-from repro_torch.optim import sgd
+from repro_torch.optim import adamw, schedules, sgd
 from repro_torch.train.losses import softmax_xent
 from repro_torch.train.metrics import (
     accuracy,
@@ -67,7 +71,7 @@ from repro_torch.tree import tree_leaves, tree_map
 
 PyTree = Any
 
-__all__ = ["DecentralizedTrainer", "RoundMetrics"]
+__all__ = ["DecentralizedTrainer", "LMCohortTrainer", "RoundMetrics"]
 
 # Backends run_fused supports: those whose per-period operators stack into a
 # MixingProgram. Mirrors the ``fused`` flags of GossipEngine.capabilities().
@@ -525,3 +529,532 @@ def _copy_into(dst: PyTree, src: PyTree) -> None:
     """Copy ``src``'s leaves into ``dst``'s tensors (static buffers)."""
     for d, s in zip(tree_leaves(dst), tree_leaves(src)):
         d.copy_(s)
+
+
+# ---------------------------------------------------------------------------
+# LLM cohorts (model kind "lm"; experiments/runner.py dispatches here)
+# ---------------------------------------------------------------------------
+
+# Backends run_fused supports for LM cohorts, as in the reference.
+_LM_FUSED_BACKENDS = ("dense", "sparse", "sparse_pallas")
+
+# compress="auto" threshold: members whose parameter tree exceeds this many
+# bytes gossip through CHOCO top-k by default (a reduced 1B-class member is
+# ~6 MB in f32, the tiny test transformers ~100 KB).
+_COMPRESS_AUTO_BYTES = 1 << 20
+_COMPRESS_AUTO_K = 0.1
+
+
+class LMCohortTrainer:
+    """DecAvg over a cohort of transformer LMs on domain-skewed token streams.
+
+    The LM analogue of ``DecentralizedTrainer``: node-stacked transformer
+    params broadcast from one member's init (drawn from ``seed`` on the
+    trainer's device), per-round next-token training (AdamW or SGD under an
+    LR schedule) and gossip through one ``GossipEngine``. Token batches are
+    a pure function of ``(seed, node, round)`` (data/tokens.py), so both run
+    paths draw the same data:
+
+    - ``run``: one Python iteration per round, launched eagerly.
+    - ``run_fused``: the engine's ``MixingProgram`` staged up front, and on
+      the card each round's local step and each period slot's gossip as a
+      CUDA graph, captured once and replayed. The round, the token batch,
+      the schedule's LR (computed from the round on the device), AdamW's
+      step count and the fault masks are device buffers the graphs read.
+      Same seed gives the same params and loss as ``run``.
+
+    A local step sums every node's loss over views of the stacked leaves and
+    takes one ``torch.autograd.grad``: no term couples two nodes, so each
+    node gets its own gradient exactly. Updates (optimizer, gossip, fault
+    freezes, CHOCO) are in place and leaf by leaf, so a full-width member
+    never needs a second copy of the tree.
+
+    ``compress="auto"`` turns on CHOCO top-k gossip when a member exceeds
+    ~1 MB; a float is an explicit k fraction and ``None`` forces raw DecAvg.
+    Faults never compose with compression: "auto" resolves to off under
+    faults, an explicit fraction raises. With ``faults=`` dead nodes keep
+    their params and both optimizer moments bit-exactly (AdamW's shared step
+    count advances). Checkpoints save ``(params, opt[, cstate])`` plus the
+    step, and ``restore`` resumes bit-identically. As in the reference,
+    ``cfg.opt_dtype`` is not read: the moments are f32.
+    """
+
+    def __init__(
+        self,
+        topology: Graph | TopologySchedule | str,
+        cfg,
+        *,
+        nodes: int,
+        batch: int = 4,
+        seq: int = 128,
+        lr: float = 3e-4,
+        schedule: str = "cosine",
+        backend: str = "auto",
+        matrix: str = "decavg",
+        gossip_every: int = 1,
+        compress: float | str | None = "auto",
+        faults: str | None = None,
+        seed: int = 0,
+        data_kwargs: dict | None = None,
+        device: str | torch.device | None = None,
+    ):
+        self.cfg = cfg
+        self.num_nodes = int(nodes)
+        self.batch, self.seq = int(batch), int(seq)
+        self.lr, self.schedule_name, self.seed = lr, schedule, seed
+        self.data_kwargs = dict(data_kwargs or {})
+        self.engine = decavg.GossipEngine(
+            topology, backend=backend, matrix=matrix, gossip_every=gossip_every,
+            faults=faults, seed=seed, n=self.num_nodes, device=device,
+        )
+        if self.engine.num_nodes != self.num_nodes:
+            raise ValueError(
+                f"topology spec pins n={self.engine.num_nodes} but nodes is {self.num_nodes}"
+            )
+        self.device = self.engine.device
+        self.mix_impl = self.engine.backend
+        self.faulted = self.engine.faults is not None
+        self._has_hist = self.faulted and self.engine.fault_trace.delay_max > 0
+
+        gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        per_node = TF.init_params(gen, cfg, device=self.device)
+        self.member_params = TF.param_count(per_node)
+        self.member_bytes = sum(x.numel() * x.element_size() for x in tree_leaves(per_node))
+        self.compress = self._resolve_compress(compress)
+        n = self.num_nodes
+        self.params = tree_map(lambda x: x.expand(n, *x.shape).contiguous(), per_node)
+        del per_node
+        self.use_adamw = cfg.optimizer == "adamw"
+        self.opt_state = adamw.init(self.params) if self.use_adamw else sgd.init(self.params)
+        self.cstate = None if self.compress is None else compress_mod.init(self.params)
+        self.start_round = 0  # advanced by restore()
+        self._loss_fn = ST.node_loss_fn(cfg)
+        self._sched = None  # built per run (total_steps = that run's rounds)
+        self._eval_data = None
+
+    @property
+    def graph(self):
+        return self.engine.graph
+
+    @property
+    def supports_fused(self) -> bool:
+        """True when ``run_fused`` can execute this trainer's backend."""
+        return self.mix_impl in _LM_FUSED_BACKENDS
+
+    def _resolve_compress(self, compress) -> float | None:
+        if compress == "auto":
+            if self.faulted or self.member_bytes <= _COMPRESS_AUTO_BYTES:
+                return None
+            return _COMPRESS_AUTO_K
+        if compress is None or compress is False:
+            return None
+        k = float(compress)
+        if not 0.0 < k <= 1.0:
+            raise ValueError(f"compress (top-k fraction) must be in (0, 1], got {compress}")
+        if self.faulted:
+            raise ValueError(
+                "faults do not compose with compress= gossip: the CHOCO "
+                "reference update assumes every published model is current"
+            )
+        return k
+
+    # -- the round's pieces (in place on params, opt_state, cstate) ---------
+
+    def _per_node(self, params: PyTree, toks: torch.Tensor, labels: torch.Tensor,
+                  fn) -> torch.Tensor:
+        """(N,) values of ``fn(params[i], batch i)``, node ``i`` on its own
+        (unstacked) params and its batch."""
+        return torch.stack([
+            fn(tree_map(lambda x, i=i: x[i], params),
+               {"tokens": toks[i], "labels": labels[i]})
+            for i in range(self.num_nodes)
+        ])
+
+    def _local_step(self, toks: torch.Tensor, labels: torch.Tensor, lr) -> torch.Tensor:
+        """One optimizer step on every node; returns the mean loss (0-dim)."""
+        leaves = [p.detach().requires_grad_(True) for p in tree_leaves(self.params)]
+        with torch.enable_grad():
+            losses = self._per_node(_unflatten(self.params, leaves), toks, labels,
+                                    self._loss_fn)
+            grads = torch.autograd.grad(losses.sum(), leaves)
+        del leaves
+        if self.use_adamw:
+            adamw.update_(list(grads), self.opt_state, self.params, lr=lr)
+        else:
+            sgd.update_(list(grads), self.opt_state, self.params, lr=lr, mu=0.5)
+        return losses.detach().mean()
+
+    @torch.no_grad()
+    def _freeze_dead(self, alive: torch.Tensor, p_in: list[torch.Tensor],
+                     o_in: list[torch.Tensor]) -> None:
+        """Dead nodes back to their pre-round params and moments (the
+        reference's ``where_alive`` / ``where_alive_stacked``): ``p_in`` and
+        ``o_in`` are the leaves before the step, in ``tree_leaves`` order;
+        shared leaves (AdamW's count) pass through."""
+        n = self.num_nodes
+        for new, old in zip(tree_leaves(self.params) + tree_leaves(self.opt_state),
+                            p_in + o_in):
+            if new.dim() and new.shape[0] == n:
+                new.copy_(torch.where(faults_mod._node_mask(alive, new), new, old))
+
+    @torch.no_grad()
+    def _gossip(self, mix_leaf: Callable[[torch.Tensor], torch.Tensor]) -> None:
+        """One gossip exchange, leaf by leaf, through ``mix_leaf`` (a leaf ->
+        mixed leaf map). Without compression: DecAvg. With it, CHOCO: each
+        node publishes the top-k of ``params - reference`` (the reference
+        advances by it), peers mix the references, and each node keeps its
+        residual, ``params + W @ ref - ref``."""
+        if self.compress is None:
+            for p in tree_leaves(self.params):
+                p.copy_(mix_leaf(p))
+            return
+        for p, ref in zip(tree_leaves(self.params), tree_leaves(self.cstate.reference)):
+            _, state = compress_mod.compress([p], compress_mod.CompressState([ref]),
+                                             k_frac=self.compress)
+            ref.copy_(state.reference[0])
+            del state
+            p.copy_((p.float() + (mix_leaf(ref) - ref)).to(p.dtype))
+
+    # -- metrics / checkpoint -------------------------------------------------
+
+    @torch.no_grad()
+    def consensus(self) -> np.ndarray:
+        return consensus_distance(self.params).cpu().numpy()
+
+    @torch.no_grad()
+    def _domain_eval(self, toks: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        """(N,) per-node mean true-token probability on the held-out
+        foreign-domain eval batch (``domain_acc``)."""
+
+        def node_eval(p, batch):
+            logits, _ = TF.forward(p, self.cfg, batch["tokens"], remat=False)
+            logp = torch.log_softmax(logits.float(), dim=-1)
+            ll = logp.gather(-1, batch["labels"].long().unsqueeze(-1)).squeeze(-1)
+            return torch.exp(ll).mean()
+
+        return self._per_node(self.params, toks, labels, node_eval)
+
+    def domain_metrics(self) -> dict:
+        """G2-style knowledge-spread metrics on the token task: per-node
+        ``domain_acc`` on *other* nodes' domain tokens, and their cohort mean
+        ``g2_token_spread`` (the store/analysis join key)."""
+        if self.num_nodes < 2:
+            return {}
+        from repro_torch.data import tokens as tok
+
+        if self._eval_data is None:
+            toks, labels = tok.domain_eval_batch(
+                self.num_nodes, self.batch, self.seq, self.cfg.vocab_size, seed=self.seed,
+                **{k: v for k, v in self.data_kwargs.items() if k == "domain_size"},
+            )
+            self._eval_data = (torch.as_tensor(toks, device=self.device),
+                               torch.as_tensor(labels, device=self.device))
+        accs = self._domain_eval(*self._eval_data).cpu().numpy()
+        return {
+            "domain_acc": [round(float(a), 6) for a in accs],
+            "g2_token_spread": float(accs.mean()),
+        }
+
+    def _ckpt_tree(self) -> dict:
+        tree = {"params": self.params, "opt": self.opt_state}
+        if self.cstate is not None:
+            tree["cstate"] = self.cstate
+        return tree
+
+    def save(self, path: str, *, step: int) -> None:
+        """Checkpoint ``(params, opt[, cstate])`` plus the step: everything a
+        bit-identical resume needs (the reference's npz layout)."""
+        from repro_torch.checkpoint import ckpt
+
+        ckpt.save(path, self._ckpt_tree(), step=step)
+
+    def restore(self, path: str) -> int:
+        """Restore a ``save`` checkpoint; the next ``run``/``run_fused``
+        continues from the round after the saved step, re-deriving the same
+        batches and LR the uninterrupted run would have seen."""
+        from repro_torch.checkpoint import ckpt
+
+        if self._has_hist:
+            raise ValueError(
+                "resume does not compose with straggler faults: the "
+                "delayed-snapshot ring buffer is not checkpointed"
+            )
+        tree, step = ckpt.restore(path, self._ckpt_tree())
+        if step is None:
+            raise ValueError(f"checkpoint {path!r} carries no step")
+        self.params, self.opt_state = tree["params"], tree["opt"]
+        if self.cstate is not None:
+            self.cstate = tree["cstate"]
+        self.start_round = int(step) + 1
+        return self.start_round
+
+    @staticmethod
+    def _ckpt_rounds(rounds: int, ckpt_every: int) -> set[int]:
+        """Checkpoint cadence: every ``ckpt_every`` rounds and the final round."""
+        if not ckpt_every:
+            return set()
+        s = {r for r in range(1, rounds) if r % ckpt_every == 0}
+        s.add(rounds - 1)
+        return s
+
+    def _batch(self, r: int) -> tuple[torch.Tensor, torch.Tensor]:
+        from repro_torch.data import tokens as tok
+
+        toks, labels = tok.round_token_batch(
+            self.num_nodes, r, self.batch, self.seq, self.cfg.vocab_size,
+            seed=self.seed, **self.data_kwargs,
+        )
+        return (torch.as_tensor(toks, device=self.device),
+                torch.as_tensor(labels, device=self.device))
+
+    def _round_record(self, r: int, loss, lr, t0: float) -> dict:
+        rec = {
+            "round": r,
+            "loss": float(loss),
+            "lr": float(lr),
+            "wall_s": round(time.perf_counter() - t0, 4),
+            **self.domain_metrics(),
+        }
+        if self.faulted:
+            rec["alive_count"] = int(self.engine.fault_trace.alive(r).sum())
+        return rec
+
+    def _emit(self, rec: dict, on_round, verbose: bool, note: str = "") -> None:
+        if on_round is not None:
+            on_round(rec)
+        if verbose:
+            print(f"step {rec['round']:4d}  loss {rec['loss']:.4f}  lr {rec['lr']:.2e}  "
+                  + (note or f"({rec['wall_s']:.0f}s)"))
+
+    @torch.no_grad()
+    def _finished_resume(self, rounds: int, on_round, verbose: bool, t0: float) -> list[dict]:
+        """A resume that restored the final checkpoint has nothing left to
+        train; it still emits one record at the restored state, so the run's
+        final record exists."""
+        toks, labels = self._batch(rounds - 1)
+        loss = self._per_node(self.params, toks, labels, self._loss_fn).mean()
+        rec = self._round_record(rounds - 1, loss, self._sched(rounds - 1), t0)
+        self._emit(rec, on_round, verbose, "(resume already complete)")
+        return [rec]
+
+    def _begin(self, rounds: int) -> bool:
+        """Per-run set-up; True when a restored run has nothing left."""
+        self._sched = schedules.get(self.schedule_name, self.lr, rounds)
+        return self.start_round >= rounds
+
+    # -- run paths --------------------------------------------------------------
+
+    def run(
+        self,
+        rounds: int,
+        *,
+        eval_every: int = 1,
+        on_round: Callable[[dict], None] | None = None,
+        ckpt_every: int = 0,
+        ckpt_path: str = "",
+        verbose: bool = False,
+    ) -> list[dict]:
+        """Per-round Python loop: the local step and ``engine.mix``, eagerly."""
+        t0 = time.perf_counter()
+        if self._begin(rounds):
+            return self._finished_resume(rounds, on_round, verbose, t0)
+        evals = set(DecentralizedTrainer._eval_rounds(rounds, eval_every))
+        cpts = self._ckpt_rounds(rounds, ckpt_every)
+        trace = None
+        if self.faulted:
+            trace = self.engine.fault_trace
+            trace.ensure(rounds)
+        history: list[dict] = []
+        for r in range(self.start_round, rounds):
+            toks, labels = self._batch(r)
+            lr = self._sched(r).to(self.device)
+            if self.faulted:
+                alive = torch.as_tensor(trace.alive(r), device=self.device)
+                p_in = [x.clone() for x in tree_leaves(self.params)]
+                o_in = [x.clone() for x in tree_leaves(self.opt_state)]
+                loss = self._local_step(toks, labels, lr)
+                self._freeze_dead(alive, p_in, o_in)
+                del p_in, o_in
+                # The renormalized faulted mix, and the engine's straggler
+                # ring (one call per round, in order).
+                with torch.no_grad():
+                    _copy_into(self.params, self.engine.mix(self.params, round=r))
+            else:
+                loss = self._local_step(toks, labels, lr)
+                if self.engine.is_gossip_round(r):
+                    self.engine.refresh(r)
+                    self._gossip(lambda q: self.engine.mix([q])[0])
+            if r in evals:
+                rec = self._round_record(r, loss, lr, t0)
+                history.append(rec)
+                self._emit(rec, on_round, verbose)
+            if r in cpts:
+                self.save(ckpt_path, step=r)
+        return history
+
+    def run_fused(
+        self,
+        rounds: int,
+        *,
+        eval_every: int = 1,
+        on_round: Callable[[dict], None] | None = None,
+        ckpt_every: int = 0,
+        ckpt_path: str = "",
+        verbose: bool = False,
+    ) -> list[dict]:
+        """``run`` from a staged program; on the card, captured CUDA graphs.
+
+        Rounds go in chunks that end at the eval and checkpoint rounds (so
+        checkpoints land on exact round boundaries). A chunk's token slab is
+        drawn on the host for just its rounds and copied to the device; each
+        round refills the static batch and round buffers and replays the
+        local-step graph and, on gossip rounds, its period slot's gossip
+        graph. Supported for the dense, sparse and sparse_pallas backends.
+        """
+        if not self.supports_fused:
+            raise ValueError(
+                f"run_fused supports backends {_LM_FUSED_BACKENDS}, not "
+                f"{self.mix_impl!r}; use run()"
+            )
+        from repro_torch.data import tokens as tok
+
+        t0 = time.perf_counter()
+        if self._begin(rounds):
+            return self._finished_resume(rounds, on_round, verbose, t0)
+        program = self.engine.program(rounds, kind=self.mix_impl)
+        evals = set(DecentralizedTrainer._eval_rounds(rounds, eval_every))
+        cpts = self._ckpt_rounds(rounds, ckpt_every)
+        staged = _LMFusedRounds(self, program)
+        history: list[dict] = []
+        prev = self.start_round - 1
+        try:
+            for end in sorted(evals | cpts):
+                if end < self.start_round:
+                    continue
+                start, prev = prev + 1, end
+                toks, labels = tok.round_token_slab(
+                    self.num_nodes, range(start, end + 1), self.batch, self.seq,
+                    self.cfg.vocab_size, seed=self.seed, **self.data_kwargs,
+                )
+                toks = torch.as_tensor(toks, device=self.device)
+                labels = torch.as_tensor(labels, device=self.device)
+                for i, r in enumerate(range(start, end + 1)):
+                    staged.round(r, toks[i], labels[i])
+                if end in evals:
+                    rec = self._round_record(end, staged.loss, self._sched(end), t0)
+                    history.append(rec)
+                    self._emit(rec, on_round, verbose)
+                if end in cpts:
+                    self.save(ckpt_path, step=end)
+        finally:
+            staged.close()
+        return history
+
+
+class _LMFusedRounds:
+    """The rounds of one ``LMCohortTrainer.run_fused`` call.
+
+    Static buffers: the trainer's params, optimizer state and compression
+    reference (updated in place), the round's token batch ``toks``/``labels``
+    and the round ``r`` (an int64 0-dim tensor), both refilled before each
+    round, and ``loss``, the round's mean loss. The schedule's LR is
+    computed from ``r`` on the device. On a faulted program the pieces also
+    hold the pre-round snapshots and the straggler ring, and read the
+    round's alive and keep rows through ``r``.
+
+    On the card each piece (the local step; the gossip of each period slot)
+    runs eagerly on the capture stream the first time it is used, which
+    does the lazy initialisation a warm-up would (cuBLAS workspaces,
+    autograd, the kernels' modules) on the live state: a full-width member
+    has no room for the scratch copies a separate warm-up would need. The
+    second use captures it as a CUDA graph; later uses replay it. Eager and
+    replayed runs launch the same kernels, so a round gives the same bits
+    either way.
+    """
+
+    def __init__(self, trainer: LMCohortTrainer, program: decavg.MixingProgram):
+        self.trainer = trainer
+        self.program = program
+        dev = trainer.device
+        self.device = dev
+        shape = (trainer.num_nodes, trainer.batch, trainer.seq)
+        self.toks = torch.zeros(shape, dtype=torch.int32, device=dev)
+        self.labels = torch.zeros(shape, dtype=torch.int32, device=dev)
+        self.r = torch.zeros((), dtype=torch.int64, device=dev)
+        self._loss = torch.zeros((), dtype=torch.float32, device=dev)
+        self.hist = None
+        self.p_in = self.o_in = None
+        if program.faulted:
+            self.p_in = [torch.empty_like(x) for x in tree_leaves(trainer.params)]
+            self.o_in = [torch.empty_like(x) for x in tree_leaves(trainer.opt_state)]
+            if program.delay_max > 0:
+                self.hist = faults_mod.init_history(trainer.params, program.delay_max + 1)
+        self.graphs: dict[Any, Staged] = {}
+        self.ran: set = set()
+        self.stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+        # The pieces run one after another on one stream and keep nothing
+        # alive between runs, so their graphs can share one memory pool.
+        self.pool = torch.cuda.graph_pool_handle() if dev.type == "cuda" else None
+
+    @property
+    def loss(self) -> float:
+        return float(self._loss)
+
+    def _local(self) -> None:
+        tr = self.trainer
+        if self.program.faulted:
+            for d, s in zip(self.p_in + self.o_in,
+                            tree_leaves(tr.params) + tree_leaves(tr.opt_state)):
+                d.copy_(s)
+        self._loss.copy_(tr._local_step(self.toks, self.labels, tr._sched(self.r)))
+        if self.program.faulted:
+            tr._freeze_dead(self.program.alive_at(self.r), self.p_in, self.o_in)
+            if self.hist is not None:
+                with torch.no_grad():
+                    faults_mod.push(tr.params, self.hist, self.r)
+
+    @torch.no_grad()
+    def _mix(self, t: int) -> None:
+        tr, prog = self.trainer, self.program
+        if prog.faulted:
+            pub = (None if self.hist is None
+                   else faults_mod.publish(self.hist, self.r, prog.f_delay))
+            _copy_into(tr.params, prog.apply_period(tr.params, t, r=self.r, pub=pub))
+        else:
+            tr._gossip(lambda q: prog.apply_period([q], t)[0])
+
+    def _run(self, key, fn: Callable[[], None]) -> None:
+        if self.stream is None:
+            fn()
+            return
+        staged = self.graphs.get(key)
+        if staged is None:
+            if key not in self.ran:
+                self.ran.add(key)
+                current = torch.cuda.current_stream(self.device)
+                self.stream.wait_stream(current)
+                with torch.cuda.stream(self.stream):
+                    fn()
+                current.wait_stream(self.stream)
+                return
+            # The eager run's transients go back to the card before the
+            # capture takes its own pool.
+            torch.cuda.synchronize(self.device)
+            torch.cuda.empty_cache()
+            staged = self.graphs[key] = Staged(fn, self.device, stream=self.stream,
+                                               pool=self.pool)
+        staged()
+
+    def close(self) -> None:
+        """Release the graphs now (see ``_FusedRounds.close``)."""
+        self.graphs.clear()
+
+    def round(self, r: int, toks: torch.Tensor, labels: torch.Tensor) -> None:
+        self.toks.copy_(toks)
+        self.labels.copy_(labels)
+        self.r.fill_(r)
+        self._run("local", self._local)
+        if not self.program.gossip_mask[r]:
+            return
+        t = int(self.program.period_idx[r])
+        self._run(("mix", t), lambda: self._mix(t))

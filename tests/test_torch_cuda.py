@@ -539,3 +539,116 @@ def test_engine_through_the_kernel_matches_the_plain_path(cuda, arch):
         if flash:
             assert LAUNCHES["flash_attention"] == cfg.num_layers * len(prompts)
     assert all(np.array_equal(out[True][r], out[False][r]) for r in out[False])
+
+
+# -- slice D: LLM-cohort training ---------------------------------------------
+
+# The widest leaf of full-width llama3.2-1b's embedding (128256 x 2048), the
+# operating point of the gossip on the full-width LLM path at N=2.
+LLAMA_EMBED_D = 262_668_288
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gossip_mix_at_two_nodes_and_full_llm_width(cuda, dtype):
+    w = torch.full((2, 2), 0.5, device=cuda)
+    w[0, 0], w[0, 1] = 0.75, 0.25
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    p = (torch.rand(2, LLAMA_EMBED_D, generator=gen, device=cuda) * 2 - 1).to(dtype)
+    reset_launches()
+    got = gm.gossip_mix(w, p)
+    torch.cuda.synchronize()
+    assert LAUNCHES["gossip_mix"] == 1 and got.dtype == dtype and got.shape == p.shape
+    want = gm.gossip_mix_ref(w, p)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= _tol(dtype)["atol"], err
+    del p, got, want
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_blocked_kernel_at_two_nodes_one_padded_block(cuda, dtype):
+    """N=2: one 8-row block of which 6 rows are padding, at a wide ragged D."""
+    csr = sparse.csr_from_graph(topology.make("ring:n=2"))
+    b = sparse.block_ell_from_csr(csr)
+    assert b.idx.shape[0] == 1  # one block of 8 rows
+    idx, val = torch.as_tensor(b.idx, device=cuda), torch.as_tensor(b.val, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    p = (torch.rand(2, (1 << 25) + 7, generator=gen, device=cuda) * 2 - 1).to(dtype)
+    reset_launches()
+    got = sg.gossip_mix_sparse_blocked(idx, val, p)
+    torch.cuda.synchronize()
+    assert LAUNCHES["sparse_gossip_blocked"] == 1 and got.dtype == dtype
+    torch.testing.assert_close(got.float(), sg.sparse_gossip_blocked_ref(idx, val, p).float(),
+                               **_tol(dtype))
+
+
+def _lm_cfg():
+    import dataclasses
+
+    return dataclasses.replace(
+        cfgbase.get("llama3.2-1b").reduced(), num_layers=2, d_model=64, num_heads=2,
+        num_kv_heads=2, head_dim=32, d_ff=128, vocab_size=256)
+
+
+def _lm(dev, **kw):
+    return trainer_mod.LMCohortTrainer("ring:n=4", _lm_cfg(), nodes=4, batch=2, seq=16,
+                                       lr=1e-3, device=dev, **kw)
+
+
+@pytest.mark.parametrize("backend,kw", [
+    ("dense", {"compress": 0.25}),
+    ("sparse_pallas", {"compress": 0.25}),
+    ("sparse_pallas", {"compress": None, "gossip_every": 2}),
+    ("dense", {"faults": "churn:p_leave=0.4,p_join=0.3"}),
+    ("sparse", {"faults": "churn:p_leave=0.3,p_join=0.3;straggler:frac=0.3,delay=2"}),
+])
+def test_lm_fused_matches_the_loop_on_the_card(cuda, backend, kw):
+    """run_fused (eager first round, then captured CUDA graphs) against run
+    at the reference's 1e-6, params and loss; the blocked kernel launched
+    once per leaf per gossip round on sparse_pallas."""
+    loop, fused = _lm(cuda, backend=backend, **kw), _lm(cuda, backend=backend, **kw)
+    h1 = loop.run(6, eval_every=3)
+    reset_launches()
+    h2 = fused.run_fused(6, eval_every=3)
+    for a, b in zip(tree_leaves(loop.params), tree_leaves(fused.params)):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+    for a, b in zip(h1, h2):
+        assert a["round"] == b["round"] and abs(a["loss"] - b["loss"]) <= 1e-6
+    if backend == "sparse_pallas":
+        gossip_rounds = sum(fused.engine.is_gossip_round(r) for r in range(6))
+        assert LAUNCHES["sparse_gossip_blocked"] == len(tree_leaves(fused.params)) * gossip_rounds
+
+
+def test_lm_dead_nodes_bit_frozen_on_the_card(cuda):
+    t = _lm(cuda, faults="churn:p_leave=1.0,p_join=0.0,frac=0.5@targeted=hubs")
+    trace = t.engine.fault_trace
+    trace.ensure(4)
+    dead = np.flatnonzero(~trace.alive_matrix(4).any(axis=0))
+    assert dead.size
+    before = [x.clone() for x in tree_leaves(t.params) + tree_leaves(t.opt_state)]
+    t.run_fused(4, eval_every=4)
+    for a, b in zip(before, tree_leaves(t.params) + tree_leaves(t.opt_state)):
+        if a.dim() and a.shape[0] == 4:
+            assert torch.equal(a[dead], b[dead])
+
+
+def test_full_width_adamw_step_keeps_its_dtypes(cuda):
+    """llama3.2-1b at full width, 2 members: one local step leaves the params
+    bf16 and the AdamW moments f32, finite, and moves the params."""
+    cfg = cfgbase.get("llama3.2-1b")
+    t = trainer_mod.LMCohortTrainer("ring", cfg, nodes=2, compress=None, backend="dense",
+                                    device=cuda)
+    assert t.member_params == 1_498_482_688
+    t._sched = lambda r: torch.tensor(3e-4, device=cuda)
+    toks, labels = t._batch(0)
+    emb = t.params["embed"][:, :8].clone()
+    loss = t._local_step(toks, labels, t._sched(0))
+    assert torch.isfinite(loss) and 10.0 < float(loss) < 13.0  # ln(128256) = 11.76
+    assert all(p.dtype == torch.bfloat16 for p in tree_leaves(t.params))
+    opt = t.opt_state
+    assert all(m.dtype == torch.float32 for m in tree_leaves(opt.mu) + tree_leaves(opt.nu))
+    assert int(opt.count) == 1 and not torch.equal(emb, t.params["embed"][:, :8])
+    assert all(bool(torch.isfinite(m).all()) for m in tree_leaves(opt.nu))
+    del t, opt, emb
+    gc.collect()
+    torch.cuda.empty_cache()

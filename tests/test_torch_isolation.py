@@ -1,8 +1,9 @@
 """The port stands alone: no module of ``repro_torch`` (nor ``chip_smoke.py``)
 imports ``jax`` or anything of ``repro``, and every entry point asked for the
 default device raises instead of running on the CPU when there is no card:
-the DecAvg runner and trainer, and serving (model init, caches, the Engine,
-the serve CLI)."""
+the DecAvg runner and trainer, serving (model init, caches, the Engine, the
+serve CLI), and LLM-cohort training and routing (the trainer, the lm
+executor, the train CLI, serve-eval, the cohort loader)."""
 
 import ast
 import pkgutil
@@ -22,10 +23,13 @@ from repro_torch.device import resolve_device
 from repro_torch.experiments import runner, sweep
 from repro_torch.experiments.spec import ExperimentSpec
 from repro_torch.experiments.store import ResultsStore
+from repro_torch.experiments import serve_eval
 from repro_torch.launch import serve as serve_cli
+from repro_torch.launch import train as train_cli
 from repro_torch.models import transformer as TF
+from repro_torch.serve import router
 from repro_torch.serve.engine import Engine
-from repro_torch.train.trainer import DecentralizedTrainer
+from repro_torch.train.trainer import DecentralizedTrainer, LMCohortTrainer
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -107,6 +111,14 @@ _ENTRY_POINTS = {
     # parameters the caller left on the CPU: the engine still wants the card
     "Engine": lambda tmp: Engine(TF.init_params(0, _llm(), device="cpu"), _llm()),
     "serve_cli": lambda tmp: serve_cli.main([]),
+    "LMCohortTrainer": lambda tmp: LMCohortTrainer("ring:n=2", _llm(), nodes=2),
+    "train_cli": lambda tmp: train_cli.main(["--steps", "1", "--store", str(tmp / "t.jsonl")]),
+    "lm_run_spec": lambda tmp: runner.run_spec(
+        ExperimentSpec("ring:n=2", model={"kind": "lm", "nodes": 2}),
+        ResultsStore(str(tmp / "lm.jsonl")),
+    ),
+    "serve_eval": lambda tmp: serve_eval.main(["--rounds", "1"]),
+    "load_cohort": lambda tmp: router.load_cohort(str(tmp / "c.npz"), _llm(), nodes=2),
 }
 
 

@@ -150,16 +150,18 @@ def test_records_keyed_as_the_reference(tmp_path, spec):
 
 
 def test_runner_rejects_what_is_not_ported(tmp_path):
-    """The lm executor is still slice D's. A faulted spec, which slice E
-    ported, completes, and so does a sweep over two processes."""
+    """The sharded backends are still slice F's. A faulted spec, which slice
+    E ported, completes, and so does a sweep over two processes. (The lm
+    executor, slice D, runs: tests/test_torch_lm_runner.py.)"""
     store = ResultsStore(str(tmp_path / "r.jsonl"))
     faulted = ExperimentSpec("ring:n=6", faults="churn:p_leave=0.1", **TINY)
     out = runner.run_spec(faulted, store, device="cpu")
     assert out["status"] == "completed" and out["final"]["faults"] == "churn:p_leave=0.1"
     assert all("alive_count" in r for r in store.curves(faulted.run_id))
-    lm = ExperimentSpec("ring:n=4", model={"kind": "lm"}, **TINY)
-    out = runner.run_spec(lm, store, raise_on_error=False, device="cpu")
-    assert out["status"] == "failed" and "slice D" in out["error"]
+    sharded = ExperimentSpec("ring:n=4", backend="sparse_sharded", **TINY)
+    out = runner.run_spec(sharded, store, raise_on_error=False, device="cpu")
+    assert out["status"] == "failed" and "slice F" in out["error"]
     tiny = ExperimentSpec("ring:n=6", model=NARROW, **TINY)
-    summary = runner.run_sweep([lm, tiny], str(tmp_path / "s.jsonl"), processes=2, device="cpu")
-    assert summary["ran"] == 2 and summary["failed"] == [lm.run_id]
+    summary = runner.run_sweep([sharded, tiny], str(tmp_path / "s.jsonl"), processes=2,
+                               device="cpu")
+    assert summary["ran"] == 2 and summary["failed"] == [sharded.run_id]

@@ -60,6 +60,21 @@ carries on:
                paper's N=100 run agree within 1e-6; and one gossip round of
                each layout through mix_sparse_pallas(blocked=False) (the row
                gather kernel) agrees with mix_sparse;
+9b. sharded -- the node-sharded backends (plain PyTorch, no kernel
+               launches): one mix of the large_n preset's BA N=4096 graph
+               (784-64-10 MLP leaves, f32) on sparse_sharded over the
+               default mesh (one shard per card) and over 8 shards on the
+               card under both halo schedules, each identical to sparse;
+               sharded (both schedules, N=100, 4 shards) and permute
+               (ring:n=16, 16 shards) within 1e-5 of dense; one N=4096
+               round on the device alone for sparse and each sparse_sharded
+               mesh (S = 1, 2, 4, 8, 16) beside the bytes bound and the
+               halo wire; the preset's
+               N=4096 run through run_spec as written (fused, finite, its
+               rounds/s and its own peak memory), the same spec on sparse with
+               identical records, both through the trainer with identical
+               params and momentum; and the large_n_smoke preset through
+               run_sweep (every run fused);
 10. flash    -- the flash-attention kernel against its plain version, in f32
                (3e-5) and bf16 (3e-2): the reference's four test cases, the
                engine's llama3.2-1b shapes (1, S, 32, 8, 64) for S = 128 to
@@ -91,7 +106,9 @@ carries on:
                bit-unchanged from their death; the churn_smoke preset
                through run_sweep (hub_kill_hurts_more and its two AUCs
                printed, not asserted); one faulted gossip round's device
-               time beside an unfaulted one;
+               time beside an unfaulted one, at N=100 on dense and at BA
+               N=4096 on sparse (with its renormalization's time, summed
+               slot by slot and as one row reduction);
 15. compress -- CHOCO top-k gossip: the N=100 run on pallas (the loop) with
                compress=1.0 equals the uncompressed run (rtol 1e-5, atol
                1e-6), compress=0.25 through run_spec stays finite with 8
@@ -582,6 +599,7 @@ def main() -> int:
     sparse_err = sparse_kernel_checks(dev, gen)
     sparse_times = sparse_round_times(dev, gen, base_sg)
     large_n_launches = large_n_main_path(dev, kind)
+    sharded_main_path(dev, kind, smi)
 
     # 10-13. slice C: the flash-attention kernel and serving
     flash_err = flash_kernel_checks(dev, gen)
@@ -906,6 +924,156 @@ def large_n_main_path(dev, kind: str) -> dict[str, int]:
     return launches
 
 
+def sharded_main_path(dev, kind: str, smi: str) -> None:
+    """Phase 9b: the node-sharded backends, and the large_n preset's N=4096
+    sparse_sharded run at full size. Plain PyTorch: no kernel launches."""
+    from repro_torch.core import decavg, mesh, mixing, sparse, topology
+    from repro_torch.experiments import presets, runner
+    from repro_torch.experiments.store import ResultsStore
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.tree import tree_leaves
+
+    reset_launches()
+    gen = torch.Generator(device=dev).manual_seed(9)
+    card = torch.device("cuda", torch.cuda.current_device())
+    (big,) = [s for s in presets.get_preset("large_n") if s.backend == "sparse_sharded"]
+    n = topology.make(big.topology, seed=big.seed).num_nodes
+    params = mlp_tree(n, LARGE_N_DIMS, gen, dev)
+    p_total = sum(LARGE_N_LEAF_D)
+
+    def engine(backend, shards=None, halo="auto"):
+        m = None if shards is None else mesh.Mesh([card] * shards, ("data",))
+        return decavg.GossipEngine(big.topology, backend=backend, mesh=m, halo_schedule=halo,
+                                   seed=big.seed, device=dev)
+
+    # 1. One mix at N=4096 on each mesh and halo schedule: sparse's bits.
+    sparse_eng = engine("sparse")
+    want = sparse_eng.mix(params)
+    engines = {"S=1 (local_mesh)": engine("sparse_sharded")}
+    for halo in ("allgather", "ring"):
+        engines[f"S=8 {halo}"] = engine("sparse_sharded", 8, halo)
+    if engines["S=1 (local_mesh)"].mesh.shape != {"data": torch.cuda.device_count()}:
+        fail(f"default mesh {engines['S=1 (local_mesh)'].mesh} is not one shard per card")
+    for name, eng in engines.items():
+        got = eng.mix(params)
+        same = all(torch.equal(a, b) for a, b in zip(tree_leaves(got), tree_leaves(want)))
+        phase("sharded", f"{big.topology} sparse_sharded {name}: one mix (4 leaves, f32) "
+                         f"identical to sparse: {same}")
+        if not same:
+            fail(f"sparse_sharded {name} differs from sparse by {max_diff(got, want)}")
+        del got
+    # sharded at the paper's N=100 and permute on a 16-shard ring, against dense.
+    for spec, backend, shards, scheds in (
+        (MAIN_SPEC["topology"], "sharded", 4, ("allgather", "reduce_scatter")),
+        ("ring:n=16", "permute", 16, (None,)),
+    ):
+        small = mlp_tree(topology.make(spec).num_nodes, LARGE_N_DIMS, gen, dev)
+        dense = decavg.GossipEngine(spec, backend="dense", device=dev).mix(small)
+        for sched in scheds:
+            eng = decavg.GossipEngine(spec, backend=backend, device=dev,
+                                      mesh=mesh.Mesh([card] * shards, ("data",)),
+                                      sharded_schedule=sched or "reduce_scatter")
+            err = max_diff(eng.mix(small), dense)
+            phase("sharded", f"{spec} {backend} {sched or ''} on {shards} shards: max abs diff "
+                             f"from dense {err:.3e} (tol 1e-5)")
+            if not err <= 1e-5:
+                fail(f"{backend} {sched} differs from dense by {err}")
+    colors = len(mixing.edge_coloring(topology.make("ring:n=16")))
+    phase("sharded", f"ring:n=16 permute: {colors} colors, one ppermute each")
+
+    # 2. One N=4096 gossip round on the device alone (CUDA-graph replay),
+    # for sparse and each mesh; the halo's modeled wire a shard beside it.
+    def round_ms(eng) -> float:
+        return device_ms(lambda: eng.mix(params), reps=2, rounds=3)
+
+    bound = 2 * n * p_total * 4 / HBM_BYTES_PER_S * 1e3
+    phase("sharded", f"one {big.topology} round (4 leaves, {n * p_total} f32 values) on the "
+                     f"device: sparse {round_ms(sparse_eng):.4f} ms, sparse_sharded S=1 "
+                     f"(local_mesh) {round_ms(engines['S=1 (local_mesh)']):.4f} ms; bytes bound "
+                     f"(P read and written once) {bound:.4f} ms; {smi}")
+    for shards in (2, 4, 8, 16):
+        got = {halo: round_ms(engines.get(f"S={shards} {halo}") or engine(
+            "sparse_sharded", shards, halo)) for halo in ("allgather", "ring")}
+        wire = sparse.halo_wire_bytes(engine("sparse_sharded", shards).sharded_csr(), p_total)
+        phase("sharded", f"S={shards}: allgather {got['allgather']:.4f} ms, ring "
+                         f"{got['ring']:.4f} ms; halo wire a shard {wire['allgather'] / 2**20:.2f} "
+                         f"MiB allgather, {wire['ring'] / 2**20:.2f} MiB ring")
+    del engines, sparse_eng, want, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 3. The N=4096 run exactly as the preset writes it, then on sparse.
+    with tempfile.TemporaryDirectory() as tmp:
+        store = ResultsStore(str(Path(tmp) / "large_n_4096.jsonl"))
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()  # what earlier phases still hold
+        t0 = time.perf_counter()
+        out = runner.run_spec(big, store, raise_on_error=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+        final, records = out["final"], store.curves(big.run_id)
+        if final["fused"] is not True or final["backend"] != "sparse_sharded":
+            fail(f"{big.run_id}: fused={final['fused']} backend={final['backend']}")
+        if final["device"] != kind or [r["round"] for r in records] != list(range(big.rounds)):
+            fail(f"{big.run_id}: device {final['device']}, rounds {[r['round'] for r in records]}")
+        for r in records:
+            for key in ("mean_acc", "min_acc", "g2_acc_spread", "consensus_mean"):
+                if r[key] is None or not math.isfinite(r[key]):
+                    fail(f"{big.run_id} round {r['round']}: {key} = {r[key]}")
+        phase("sharded", f"{big.run_id} ({big.topology}, {big.rounds} rounds, train_per_class "
+                         f"{big.data['train_per_class']}, sparse_p_chunk "
+                         f"{big.model['sparse_p_chunk']}): fused sparse_sharded, final mean_acc "
+                         f"{final['mean_acc']:.4f}, g2_acc_spread {final['g2_acc_spread']:.4f}, "
+                         f"consensus_mean {final['consensus_mean']:.4g}; {big.rounds / wall:.3f} "
+                         f"rounds/s ({wall:.2f} s, data and set-up included); the run's own peak "
+                         f"device memory {peak:.3f} GiB (above the {held / 2**30:.3f} GiB "
+                         f"already held when it started); {smi}")
+        plain = dataclasses.replace(big, backend="sparse")
+        t0 = time.perf_counter()
+        runner.run_spec(plain, store, raise_on_error=True)
+        wall_plain = time.perf_counter() - t0
+        for a, b in zip(records, store.curves(plain.run_id)):
+            keys = set(a) - {"wall_s", "run_id"}
+            if any(a[k] != b[k] for k in keys):
+                fail(f"round {a['round']}: sparse_sharded {a} vs sparse {b}")
+        phase("sharded", f"same spec on sparse: records identical; {plain.rounds / wall_plain:.3f} "
+                         f"rounds/s ({wall_plain:.2f} s)")
+    last = {}
+    for s in (big, plain):
+        tr, ds = large_n_trainer(s, dev)
+        tr.run_fused(s.rounds)
+        last[s.backend] = tree_leaves(tr.params) + tree_leaves(tr.momentum)
+        del tr, ds
+    same = all(torch.equal(a, b) for a, b in zip(last["sparse_sharded"], last["sparse"]))
+    diff = max(float((a - b).abs().max()) for a, b in zip(last["sparse_sharded"], last["sparse"]))
+    phase("sharded", f"{big.topology} trainer run_fused: sparse_sharded and sparse params and "
+                     f"momentum identical: {same} (max abs diff {diff:.3e})")
+    if not same:
+        fail(f"sparse_sharded and sparse runs differ by {diff}")
+    del last
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4. The large_n_smoke preset through run_sweep.
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "large_n_smoke.jsonl")
+        specs = presets.get_preset("large_n_smoke")
+        summary = runner.run_sweep(specs, path)
+        finals = ResultsStore(path).finals()
+        if summary["failed"] or len(finals) != len(specs):
+            fail(f"large_n_smoke: {summary}")
+        for s in specs:
+            f = finals[s.run_id]["final"]
+            if f["fused"] is not True or f["backend"] != s.backend:
+                fail(f"large_n_smoke {s.run_id}: fused={f['fused']} backend={f['backend']}")
+        phase("sharded", f"large_n_smoke: {len(specs)} runs completed, all fused ("
+                         + ", ".join(f"{s.backend}: mean_acc {finals[s.run_id]['final']['mean_acc']:.4f}"
+                                     for s in specs) + ")")
+    if any(LAUNCHES.values()):
+        fail(f"the sharded phase launched a hand-written kernel: {dict(LAUNCHES)}")
+
+
 def max_diff(a, b) -> float:
     from repro_torch.tree import tree_leaves
 
@@ -923,7 +1091,7 @@ def mlp_tree(n: int, dims, gen, dev) -> dict:
 
 def faults_main_path(dev, kind: str) -> None:
     """Phase 14: the paper's run under faults, loop and fused, dense and sparse."""
-    from repro_torch.core import decavg, faults, topology
+    from repro_torch.core import decavg, faults, sparse, topology
     from repro_torch.experiments import analysis, presets, runner
     from repro_torch.experiments.spec import ExperimentSpec
     from repro_torch.experiments.store import ResultsStore
@@ -1035,6 +1203,31 @@ def faults_main_path(dev, kind: str) -> None:
                     f"(renormalized, stale publishes, dead rows passed) {t_f:.4f} ms, plain "
                     f"torch.matmul mix {t_p:.4f} ms; the faulted round's params bookkeeping "
                     f"(snapshot, where_alive, ring push) {t_b:.4f} ms")
+    del tr, prog, params, hist, p_in
+
+    # The faulted sparse round at BA N=4096 (K = 117 slots, the hubs' rows):
+    # its renormalization sums each row slot by slot, K+1 launches, where a
+    # single row reduction would pick its summation order by shape.
+    eng = decavg.GossipEngine("ba:n=4096,m=2", backend="sparse", faults=FAULT_SPEC, device=dev)
+    sp = eng.program(start + 1)
+    val, keep = sp.ell_val[0], sp.f_keep[start]
+    params = mlp_tree(eng.num_nodes, LARGE_N_DIMS, gen, dev)
+    r_t = torch.tensor(start, device=dev)
+
+    def one_reduction():
+        vk = val * keep
+        rowsum = vk.sum(dim=1)
+        ok = rowsum > 0
+        return vk * (torch.where(ok, 1.0, 0.0) / torch.where(ok, rowsum, 1.0))[:, None], ok
+
+    t_slots = device_ms(lambda: faults.renorm_ell(val, keep), reps=5)
+    t_one = device_ms(one_reduction, reps=5)
+    t_f = device_ms(lambda: sp.apply_period(params, 0, r=r_t), reps=2)
+    t_p = device_ms(lambda: sparse.mix_ell(sp.ell_idx[0], val, params), reps=2)
+    phase("faults", f"one BA N=4096 sparse gossip round (K={val.shape[1]}, 4 leaves, f32) on "
+                    f"the device: faulted {t_f:.4f} ms, plain {t_p:.4f} ms; its renormalization "
+                    f"summed slot by slot {t_slots:.4f} ms, as one row reduction {t_one:.4f} ms")
+    del eng, sp, params
 
 
 def compress_main_path(dev, kind: str) -> dict[str, int]:

@@ -59,6 +59,8 @@ __all__ = [
     "mix_faulted_dense",
     "mix_faulted_csr",
     "mix_faulted_ell",
+    "faulted_ell_coefs",
+    "faulted_ell_rows",
     "faulted_dense_w",
     "init_history",
     "push",
@@ -377,9 +379,14 @@ def renorm_values(
 
 
 def renorm_ell(val: torch.Tensor, keep: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """ELL-layout row renormalization: ``val`` and ``keep`` are (N, K)."""
+    """ELL-layout row renormalization: ``val`` and ``keep`` are (N, K).
+    Each row's sum runs slot by slot in slot order, so it does not depend
+    on how many rows or trailing zero-weight slots the layout has (a shard's
+    rows sum to the same bits as in the whole matrix)."""
     vk = val * keep
-    rowsum = vk.sum(dim=1)
+    rowsum = vk[:, 0].clone()
+    for k in range(1, vk.shape[1]):
+        rowsum.add_(vk[:, k])
     ok = rowsum > 0
     inv = torch.where(ok, 1.0, 0.0) / torch.where(ok, rowsum, 1.0)
     return vk * inv[:, None], ok
@@ -472,6 +479,38 @@ def mix_faulted_csr(
     return tree_map(leaf2, params, pub)
 
 
+def faulted_ell_coefs(
+    val: torch.Tensor, keep: torch.Tensor, alive: torch.Tensor, is_diag: torch.Tensor
+) -> tuple[torch.Tensor, ...]:
+    """The per-round coefficients of a faulted ELL mix over R rows: ``val``,
+    ``keep`` and ``is_diag`` (a slot's source is its own row) are (R, K),
+    ``alive`` is (R,). Returns the renormalized weights, the rows that mix
+    (``ok & alive``, (R, 1)), each row's self weight and the weights with the
+    self slot zeroed."""
+    vn, ok = renorm_ell(val, keep)
+    okr = (ok & alive)[:, None]
+    dcoef = torch.where(is_diag, vn, 0.0).sum(dim=1)
+    vn_od = torch.where(is_diag, 0.0, vn)
+    return vn, okr, dcoef, vn_od
+
+
+def faulted_ell_rows(
+    idx: torch.Tensor, coefs: tuple[torch.Tensor, ...], cur: torch.Tensor,
+    src: torch.Tensor, stale: bool,
+) -> torch.Tensor:
+    """One faulted ELL mix of R rows in f32: ``cur`` (R, p) are the rows'
+    own current params and ``src`` the rows ``idx`` addresses (the
+    published snapshots when ``stale``, else the current params). With
+    stale publishes the self term comes fresh from ``cur``; rows that do not
+    mix pass ``cur`` through bit-unchanged."""
+    vn, okr, dcoef, vn_od = coefs
+    if stale:
+        out = _ell_sum(idx, vn_od, src) + dcoef[:, None] * cur
+    else:
+        out = _ell_sum(idx, vn, src)
+    return torch.where(okr, out, cur)
+
+
 def mix_faulted_ell(
     idx: torch.Tensor,
     val: torch.Tensor,
@@ -484,26 +523,18 @@ def mix_faulted_ell(
     source columns, ``val`` (N, K) f32 weights and ``keep`` (N, K) bool.
     Each row sums its slots in slot order (``core.sparse.mix_ell``'s order);
     padding slots weigh 0 and are kept, so they add exact zeros."""
-    vn, ok = renorm_ell(val, keep)
-    okr = (ok & alive)[:, None]
+    rows = torch.arange(idx.shape[0], device=idx.device)[:, None]
+    coefs = faulted_ell_coefs(val, keep, alive, idx == rows)
 
     if pub is None:
         def leaf(p: torch.Tensor) -> torch.Tensor:
             pf = _flat(p)
-            out = torch.where(okr, _ell_sum(idx, vn, pf), pf)
-            return out.reshape(p.shape).to(p.dtype)
+            return faulted_ell_rows(idx, coefs, pf, pf, False).reshape(p.shape).to(p.dtype)
 
         return tree_map(leaf, params)
 
-    rows = torch.arange(idx.shape[0], device=idx.device)[:, None]
-    is_diag = idx == rows
-    dcoef = torch.where(is_diag, vn, 0.0).sum(dim=1)
-    vn_od = torch.where(is_diag, 0.0, vn)
-
     def leaf2(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-        pf = _flat(p)
-        out = _ell_sum(idx, vn_od, _flat(q)) + dcoef[:, None] * pf
-        out = torch.where(okr, out, pf)
+        out = faulted_ell_rows(idx, coefs, _flat(p), _flat(q), True)
         return out.reshape(p.shape).to(p.dtype)
 
     return tree_map(leaf2, params, pub)

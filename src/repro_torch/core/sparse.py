@@ -24,8 +24,12 @@ The layouts are host numpy arrays (the reference's are device arrays): the
 engine and the fused program move the ELL views they mix with to the device
 once per schedule period.
 
-``ShardedCSR``, ``shard_csr``, ``stack_shard_csr`` and ``halo_wire_bytes``
-come with the sharded backends (slice F).
+The node-sharded layout (``ShardedCSR``, ``shard_csr``, ``stack_shard_csr``,
+``halo_wire_bytes``) is the reference's, array for array. The port sums a
+shard's rows over its own ELL view (``shard_ell``, on the device as
+``ShardedELL``): the shard's slice of the global ELL rows with halo-local
+columns, so ``decavg.mix_sharded_sparse`` adds the same products in the same
+order as ``mix_ell`` and gives the same bits for any shard count.
 """
 
 from __future__ import annotations
@@ -52,6 +56,12 @@ __all__ = [
     "mix_sparse",
     "mix_sparse_pallas",
     "auto_p_chunk",
+    "ShardedCSR",
+    "shard_csr",
+    "stack_shard_csr",
+    "halo_wire_bytes",
+    "shard_ell",
+    "ShardedELL",
 ]
 
 PyTree = Any
@@ -372,3 +382,312 @@ def mix_sparse_pallas(
         idx, val = ell_from_csr(csr) if ell is None else ell
         fn = ops.gossip_mix_sparse
     return mix_kernel(fn, torch.as_tensor(idx, device=dev), torch.as_tensor(val, device=dev), params)
+
+
+# ---------------------------------------------------------------------------
+# The node-sharded layout (backend "sparse_sharded")
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedCSR:
+    """CSR with the node (row) axis split into ``shards`` contiguous ranges.
+
+    Shard ``s`` owns destination rows ``[s*rows_per_shard, (s+1)*rows_per_shard)``
+    and stores its W entries with *halo-local* column ids: ``halo[s]`` lists
+    the global source nodes shard ``s`` needs (its own rows plus cross-shard
+    neighbors), and ``cols`` indexes into that halo list. One sharded round
+    (``decavg.mix_sharded_sparse``) assembles the shard's halo rows of P into
+    an (H, p) buffer and sums the shard's entries over it.
+
+    Two halo assembly schedules use the same layout:
+
+    - allgather: gather the full node axis once, take the ``halo[s]`` rows.
+    - ring: S-1 ``ppermute`` steps; at step d every shard sends exactly the
+      rows shard ``(s+d) % S`` needs from it (``ring_send[d-1]``) and places
+      what it receives from shard ``(s-d) % S`` at the matching halo slots
+      (``ring_recv[d-1]``); its own rows are copied locally via
+      ``local_src``/``local_dst``. Steps in which no shard pair exchanges
+      anything have zero-width index arrays and are skipped.
+
+    All per-shard arrays are stacked on a leading shard axis and zero-padded
+    to the largest shard: padded entries weigh 0 and point at halo slot 0 and
+    the shard's last local row; padded ring/local *destination* slots point
+    at the scratch slot H (one past the halo), which the mix discards.
+
+    Attributes (host numpy arrays, the reference's byte for byte):
+      halo:   (S, H) int32 -- global source ids needed by shard s (sorted,
+              padded by repeating id 0).
+      rows:   (S, E) int32 -- destination row LOCAL to the shard, sorted
+              (padded with rows_per_shard - 1).
+      cols:   (S, E) int32 -- index into ``halo[s]`` (padded with 0).
+      values: (S, E) float32 -- W entries (padded with 0).
+      local_src: (S, L) int32 -- shard-local rows copied into the halo
+              buffer without communication (padded with 0).
+      local_dst: (S, L) int32 -- their halo slots (padded with H).
+      ring_send: tuple of (S, K_d) int32, one per ring step d=1..S-1 --
+              rows LOCAL to the sending shard, in the receiver's halo order.
+      ring_recv: tuple of (S, K_d) int32 -- halo slots where the rows
+              received at step d land (padded with H).
+      shape: (N, N); shards, rows_per_shard: ints.
+    """
+
+    halo: np.ndarray
+    rows: np.ndarray
+    cols: np.ndarray
+    values: np.ndarray
+    local_src: np.ndarray
+    local_dst: np.ndarray
+    ring_send: tuple[np.ndarray, ...]
+    ring_recv: tuple[np.ndarray, ...]
+    shape: tuple[int, int]
+    shards: int
+    rows_per_shard: int
+
+    @property
+    def halo_width(self) -> int:
+        """Max rows of P any shard gathers (the halo buffer height)."""
+        return int(self.halo.shape[1])
+
+    @property
+    def ring_width(self) -> int:
+        """Rows of P one shard receives a round under the ring schedule
+        (the sum of the padded per-step widths: the O(H) wire bound)."""
+        return sum(int(a.shape[1]) for a in self.ring_send)
+
+    @property
+    def nbytes(self) -> int:
+        return sum(
+            a.nbytes
+            for a in (
+                self.halo, self.rows, self.cols, self.values,
+                self.local_src, self.local_dst, *self.ring_send, *self.ring_recv,
+            )
+        )
+
+
+def shard_csr(csr: CSR, shards: int) -> ShardedCSR:
+    """Split a CSR mixing matrix into per-shard row ranges with halo columns,
+    and derive the ring's peer metadata (see ``ShardedCSR``). Needs N
+    divisible by ``shards``. Host-side, once per schedule period."""
+    n = csr.shape[0]
+    if shards < 1 or n % shards:
+        raise ValueError(f"num_nodes {n} not divisible by shards {shards}")
+    blk = n // shards
+    ptr, cols, vals, coo_rows = csr.indptr, csr.indices, csr.values, csr.rows
+
+    halos: list[np.ndarray] = []
+    loc_rows: list[np.ndarray] = []
+    loc_cols: list[np.ndarray] = []
+    loc_vals: list[np.ndarray] = []
+    for s in range(shards):
+        lo, hi = int(ptr[s * blk]), int(ptr[(s + 1) * blk])
+        c = cols[lo:hi]
+        need = np.unique(c)  # the shard's halo: sorted global sources
+        if need.size == 0:
+            need = np.zeros(1, dtype=np.int32)
+        halos.append(need.astype(np.int32))
+        loc_rows.append((coo_rows[lo:hi] - s * blk).astype(np.int32))
+        loc_cols.append(np.searchsorted(need, c).astype(np.int32))
+        loc_vals.append(vals[lo:hi].astype(np.float32))
+
+    h_max = max(h.size for h in halos)
+    e_max = max(max(r.size for r in loc_rows), 1)
+    halo = np.zeros((shards, h_max), dtype=np.int32)
+    rows = np.full((shards, e_max), blk - 1, dtype=np.int32)
+    lcols = np.zeros((shards, e_max), dtype=np.int32)
+    lvals = np.zeros((shards, e_max), dtype=np.float32)
+    for s in range(shards):
+        halo[s, : halos[s].size] = halos[s]
+        k = loc_rows[s].size
+        rows[s, :k] = loc_rows[s]
+        lcols[s, :k] = loc_cols[s]
+        lvals[s, :k] = loc_vals[s]
+
+    # Ring peers: at step d shard s receives its halo rows owned by
+    # (s - d) % shards, packed in halo order, and sends the rows
+    # (s + d) % shards needs from it in that receiver's halo order.
+    scratch = h_max
+    loc_src = [np.flatnonzero(halos[s] // blk == s) for s in range(shards)]
+    l_max = max(max((p.size for p in loc_src), default=0), 1)
+    local_src = np.zeros((shards, l_max), dtype=np.int32)
+    local_dst = np.full((shards, l_max), scratch, dtype=np.int32)
+    for s in range(shards):
+        p = loc_src[s]
+        local_src[s, : p.size] = halos[s][p] - s * blk
+        local_dst[s, : p.size] = p
+
+    ring_send: list[np.ndarray] = []
+    ring_recv: list[np.ndarray] = []
+    for d in range(1, shards):
+        recv_pos = [
+            np.flatnonzero(halos[r] // blk == (r - d) % shards) for r in range(shards)
+        ]
+        k_d = max(p.size for p in recv_pos)
+        send = np.zeros((shards, k_d), dtype=np.int32)
+        recv = np.full((shards, k_d), scratch, dtype=np.int32)
+        for r in range(shards):
+            o = (r - d) % shards
+            p = recv_pos[r]
+            send[o, : p.size] = halos[r][p] - o * blk
+            recv[r, : p.size] = p
+        ring_send.append(send)
+        ring_recv.append(recv)
+
+    return ShardedCSR(
+        halo=halo, rows=rows, cols=lcols, values=lvals,
+        local_src=local_src, local_dst=local_dst,
+        ring_send=tuple(ring_send), ring_recv=tuple(ring_recv),
+        shape=csr.shape, shards=shards, rows_per_shard=blk,
+    )
+
+
+def stack_shard_csr(shcsrs: list[ShardedCSR]) -> dict[str, Any]:
+    """Pad per-period ShardedCSRs to common widths and stack them on a
+    period axis, as the reference does for its fused scan.
+
+    The halo pads to the widest period's by repeating id 0 (rows never
+    referenced), entries pad with zero-weight entries at the shard's last
+    local row, ring/local tables pad per step to the widest step. A ring
+    step stays zero-width only if it is zero-width in every period. Each
+    period's own scratch slot (its halo width) is remapped to the stacked
+    scratch ``h_max``, so padded writes still land one past the halo.
+
+    Returns halo/rows/cols/values/local_src/local_dst as (T, S, ...) arrays
+    and ring_send/ring_recv as tuples of (T, S, K_d) arrays.
+    """
+    s0 = shcsrs[0]
+    if any(s.shards != s0.shards or s.shape != s0.shape for s in shcsrs):
+        raise ValueError("all periods must share shape and shard count")
+    h_max = max(s.halo_width for s in shcsrs)
+    e_max = max(int(s.rows.shape[1]) for s in shcsrs)
+    l_max = max(int(s.local_src.shape[1]) for s in shcsrs)
+    steps = s0.shards - 1
+    k_max = [max(int(s.ring_send[d].shape[1]) for s in shcsrs) for d in range(steps)]
+
+    def pad(a: np.ndarray, width: int, fill) -> np.ndarray:
+        return np.pad(a, ((0, 0), (0, width - a.shape[1])), constant_values=fill)
+
+    def remap_scratch(a: np.ndarray, s: ShardedCSR) -> np.ndarray:
+        return np.where(a == s.halo_width, h_max, a).astype(a.dtype)
+
+    return {
+        "halo": np.stack([pad(s.halo, h_max, 0) for s in shcsrs]),
+        "rows": np.stack([pad(s.rows, e_max, s0.rows_per_shard - 1) for s in shcsrs]),
+        "cols": np.stack([pad(s.cols, e_max, 0) for s in shcsrs]),
+        "values": np.stack([pad(s.values, e_max, 0.0) for s in shcsrs]),
+        "local_src": np.stack([pad(s.local_src, l_max, 0) for s in shcsrs]),
+        "local_dst": np.stack(
+            [pad(remap_scratch(s.local_dst, s), l_max, h_max) for s in shcsrs]
+        ),
+        "ring_send": tuple(
+            np.stack([pad(s.ring_send[d], k_max[d], 0) for s in shcsrs])
+            for d in range(steps)
+        ),
+        "ring_recv": tuple(
+            np.stack([pad(remap_scratch(s.ring_recv[d], s), k_max[d], h_max) for s in shcsrs])
+            for d in range(steps)
+        ),
+    }
+
+
+def halo_wire_bytes(shcsr: ShardedCSR, p: int, *, itemsize: int = 4) -> dict[str, int]:
+    """Modeled per-shard *receive* volume of one mixing round, per schedule:
+    the allgather brings the other shards' (N - N/S) rows, the ring only the
+    padded per-step halo rows (``ring_width``). Payload bytes of P rows at
+    ``p`` features; layout metadata is not counted."""
+    n = shcsr.shape[0]
+    return {
+        "allgather": (n - shcsr.rows_per_shard) * p * itemsize,
+        "ring": shcsr.ring_width * p * itemsize,
+    }
+
+
+def shard_ell(
+    rows: np.ndarray, cols: np.ndarray, values: np.ndarray, rows_per_shard: int
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, tuple[int, ...]]:
+    """Each shard's ELL view of its (S, E) entries (a ``ShardedCSR``'s
+    ``rows``/``cols``/``values``, or one period of ``stack_shard_csr``).
+
+    Slot k of a row holds the row's k-th nonzero entry in CSR order, as
+    ``ell_from_csr`` does for the whole matrix; zero-weight entries (the
+    layout's padding) get no slot. Returns ``idx`` (S, blk, K) int32
+    halo-local columns, ``val`` (S, blk, K) f32, ``pos`` (S, blk, K) int32,
+    the entry each slot holds (0 for padding slots, which weigh 0), and the
+    slots each shard uses (``widths``, at least 1)."""
+    shards = rows.shape[0]
+    blk = int(rows_per_shard)
+    per = []
+    for s in range(shards):
+        e = np.flatnonzero(values[s] != 0.0)
+        r = rows[s, e]
+        slot = np.arange(e.size) - np.searchsorted(r, r, side="left")
+        per.append((e, r, slot))
+    widths = tuple(max(int(slot.max()) + 1 if slot.size else 1, 1) for _, _, slot in per)
+    k = max(widths)
+    idx = np.zeros((shards, blk, k), np.int32)
+    val = np.zeros((shards, blk, k), np.float32)
+    pos = np.zeros((shards, blk, k), np.int32)
+    for s, (e, r, slot) in enumerate(per):
+        idx[s, r, slot] = cols[s, e]
+        val[s, r, slot] = values[s, e]
+        pos[s, r, slot] = e
+    return idx, val, pos, widths
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedELL:
+    """One period's sharded layout on the device, as the port mixes it.
+
+    The halo and ring tables of a ``ShardedCSR`` (int64), and each shard's
+    ELL view of its entries (``shard_ell``): ``idx`` (S, blk, K) halo-local
+    columns, ``val`` (S, blk, K) f32 and ``pos`` (S, blk, K), the entry of
+    the (S, E) layout each slot holds (a faulted round's keep mask comes in
+    that layout). ``widths`` are the slots shard s sums (the rest weigh 0).
+    Built from a ``ShardedCSR`` (``from_csr``) or as a view of a fused
+    program's stacked periods."""
+
+    halo: torch.Tensor
+    local_src: torch.Tensor
+    local_dst: torch.Tensor
+    ring_send: tuple[torch.Tensor, ...]
+    ring_recv: tuple[torch.Tensor, ...]
+    idx: torch.Tensor
+    val: torch.Tensor
+    pos: torch.Tensor
+    widths: tuple[int, ...]
+    n: int
+
+    @property
+    def shards(self) -> int:
+        return int(self.halo.shape[0])
+
+    @property
+    def rows_per_shard(self) -> int:
+        return self.n // self.shards
+
+    @property
+    def halo_width(self) -> int:
+        return int(self.halo.shape[1])
+
+    @property
+    def ring_width(self) -> int:
+        return sum(int(a.shape[1]) for a in self.ring_send)
+
+    @classmethod
+    def from_csr(cls, shcsr: ShardedCSR, device: torch.device) -> "ShardedELL":
+        idx, val, pos, widths = shard_ell(
+            shcsr.rows, shcsr.cols, shcsr.values, shcsr.rows_per_shard
+        )
+
+        def dev(a: np.ndarray) -> torch.Tensor:
+            return torch.as_tensor(a, dtype=torch.int64, device=device)
+
+        return cls(
+            halo=dev(shcsr.halo), local_src=dev(shcsr.local_src),
+            local_dst=dev(shcsr.local_dst),
+            ring_send=tuple(dev(a) for a in shcsr.ring_send),
+            ring_recv=tuple(dev(a) for a in shcsr.ring_recv),
+            idx=dev(idx), val=torch.as_tensor(val, device=device), pos=dev(pos),
+            widths=widths, n=shcsr.shape[0],
+        )

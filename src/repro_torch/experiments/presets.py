@@ -4,10 +4,12 @@ package, so every spec keeps its run id).
 - ``smoke``: 3 topology families, hub/edge splits on BA, 1 seed, N=16.
 - ``paper``: the reproduction matrix (N=100; ER / BA / SBM x iid / hub /
   edge / community x 3 seeds).
-- ``large_n``, ``large_n_smoke``: the scaling runs. Their single-device
-  runs (``large_n``'s six N=1024 runs and ``large_n_smoke``'s ``sparse``
-  run) take the sparse backend and ``run_fused``; the ``sparse_sharded``
-  runs fail with NotImplementedError until slice F ports that backend.
+- ``large_n``, ``large_n_smoke``: the scaling runs. ``large_n``'s six
+  N=1024 runs and ``large_n_smoke``'s ``sparse`` run take the sparse
+  backend; the ``sparse_sharded`` runs (``large_n``'s BA N=4096 and the
+  smoke's ``@rewire`` BA N=32) run over the trainer's default mesh, one
+  shard on the run's device.
+  Every run takes ``run_fused``.
 - ``churn_smoke``: fault injection: hub kills against leaf kills on BA N=16
   (``hub_kill_hurts_more``).
 - ``lm_smoke``: LLM cohorts: ring and star gossip against isolation on
@@ -100,9 +102,8 @@ def _large_n() -> list[ExperimentSpec]:
         partitioner=["hub_focused", "edge_focused"],
         seed=[0],
     )
-    # N=4096 rides the sparse_sharded backend: the engine builds a 1-D mesh
-    # over all local devices and shards the CSR's node axis across it
-    # (O(E*P/S) work per device; single-device runs degrade gracefully).
+    # N=4096 rides the sparse_sharded backend, over the trainer's default
+    # mesh: one shard on the run's device.
     specs += expand_grid(
         {**base, "backend": "sparse_sharded",
          "data": {"train_per_class": 5000, "test_per_class": 100}},

@@ -7,7 +7,7 @@ The port's counterpart of ``repro.experiments.runner`` for the paper's
 spread nodes, consensus distance, wall-clock) and the same ``run_end``
 summary, plus ``framework`` and ``device``. As in the reference, a run takes
 the trainer's ``run_fused`` when its backend supports it (dense, sparse,
-sparse_pallas) unless the spec says ``model={"fused": False}``, and
+sparse_pallas, sparse_sharded) unless the spec says ``model={"fused": False}``, and
 ``final.fused`` records the path it took. A spec with ``faults`` also records
 ``alive_count`` per evaluated round, and ``faults``, ``alive_min``,
 ``alive_final``, ``churn_rounds`` and ``recovery_rounds`` in its summary;

@@ -24,10 +24,16 @@ Two execution paths over the same numerics, as in the reference:
   the reference selects both inside one ``lax.scan``). Metrics stream to
   ``on_round`` at the same rounds as ``run``. Same seed gives the same
   params as ``run`` (the tests hold them to 1e-6, and to the bit for the
-  sparse backend). On the CPU the same staged rounds run eagerly.
+  sparse and sparse_sharded backends). On the CPU the same staged rounds
+  run eagerly.
 
-``faults=`` (core/faults.py) runs the faulted round on the dense and sparse
-backends: local steps, dead nodes (params and momentum) put back to their
+The mesh backends (``sharded``, ``sparse_sharded``, ``permute``) mix over
+the engine's ``core.mesh.Mesh``; the local steps stay node-stacked over all
+N on the trainer's device (the reference's per-slab steps are the same
+arithmetic: no term couples two nodes), so the mesh must sit on that device.
+
+``faults=`` (core/faults.py) runs the faulted round on the dense, sparse and
+sparse_sharded backends: local steps, dead nodes (params and momentum) put back to their
 pre-round values, the straggler ring pushed every round, and on gossip rounds
 the renormalized mix of the published snapshots. ``compress=`` (a top-k
 fraction) turns on CHOCO gossip (core/compress.py): each gossip round every
@@ -52,6 +58,7 @@ import torch
 from repro_torch.core import compress as compress_mod
 from repro_torch.core import decavg
 from repro_torch.core import faults as faults_mod
+from repro_torch.core import mesh as mesh_mod
 from repro_torch.core.topology import Graph, TopologySchedule
 from repro_torch.data.loader import NodeLoader
 from repro_torch.graphs import Staged
@@ -75,7 +82,33 @@ __all__ = ["DecentralizedTrainer", "LMCohortTrainer", "RoundMetrics"]
 
 # Backends run_fused supports: those whose per-period operators stack into a
 # MixingProgram. Mirrors the ``fused`` flags of GossipEngine.capabilities().
-_FUSED_BACKENDS = ("dense", "sparse", "sparse_pallas")
+_FUSED_BACKENDS = ("dense", "sparse", "sparse_pallas", "sparse_sharded")
+
+
+def _own_mesh(mesh: mesh_mod.Mesh | None, backend: str, device) -> mesh_mod.Mesh | None:
+    """A trainer's default sparse_sharded mesh: one shard on its own device.
+    The engine's default has a shard per local card, which the trainers,
+    keeping every node's state on one device, cannot run on a machine with
+    several (``_check_mesh``)."""
+    if mesh is None and backend == "sparse_sharded":
+        return mesh_mod.local_mesh(device=device, shards=1)
+    return mesh
+
+
+def _check_mesh(engine: decavg.GossipEngine, device: torch.device) -> None:
+    """The trainers keep every node's state on one device, so a mesh backend
+    runs only over a mesh whose shards all sit on that device (it may repeat
+    it, to run S > 1 shards there)."""
+    if engine.mesh is None or engine.backend not in decavg._MESH_BACKENDS:
+        return
+    devices = {str(d) for d in engine.mesh.device_set}
+    if len(devices) > 1:
+        raise NotImplementedError(
+            f"a mesh over several devices ({sorted(devices)}) is not supported by "
+            "the trainers yet: they keep every node's state on one device"
+        )
+    if not any(mesh_mod.same_device(d, device) for d in engine.mesh.device_set):
+        raise ValueError(f"mesh on {devices.pop()}, trainer on {device}")
 
 
 @dataclasses.dataclass
@@ -99,8 +132,10 @@ class DecentralizedTrainer:
     node's forward pass, mapped over the node axis with ``torch.func.vmap``
     (default: ``mlp_forward`` on the stacked params). ``params``
     (node-stacked tensors) replaces the initialisation, so tests can start
-    both packages from the same weights. ``device`` is where everything
-    runs; None means CUDA (and raises without a card).
+    both packages from the same weights. ``mesh`` (a ``core.mesh.Mesh`` on
+    the trainer's device) is the engine's, for the mesh backends; without
+    one, sparse_sharded runs one shard on the trainer's device. ``device``
+    is where everything runs; None means CUDA (and raises without a card).
     """
 
     def __init__(
@@ -126,12 +161,14 @@ class DecentralizedTrainer:
         num_classes: int = 10,
         class_groups: Sequence[int] | np.ndarray | None = None,
         params: PyTree | None = None,
+        mesh: mesh_mod.Mesh | None = None,
         device: str | torch.device | None = None,
     ):
         self.engine = decavg.GossipEngine(
             graph, data_sizes=loader.sizes.astype(np.float64), backend=mix_impl,
             matrix=matrix, sparse_p_chunk=sparse_p_chunk, gossip_every=gossip_every,
-            faults=faults, seed=seed, n=len(loader.sizes), device=device,
+            faults=faults, seed=seed, mesh=_own_mesh(mesh, mix_impl, device),
+            n=len(loader.sizes), device=device,
         )
         self.faulted = self.engine.faults is not None
         if self.faulted and compress is not None:
@@ -310,6 +347,7 @@ class DecentralizedTrainer:
         before round 0; ``verbose`` prints a line per evaluation.
         ``on_round`` fires after every evaluated round.
         """
+        _check_mesh(self.engine, self.device)
         history: list[RoundMetrics] = []
         t0 = time.perf_counter()
         self._gossip_first(gossip_first)
@@ -363,14 +401,15 @@ class DecentralizedTrainer:
         replays the local-step graph and, on gossip rounds, the mix graph of
         its period slot. Metrics stream to ``on_round`` after each chunk.
         Without ``x_test`` the run is one chunk. Supported for the dense,
-        sparse and sparse_pallas backends; others raise (use ``run``). A
-        capture that fails on the card raises.
+        sparse, sparse_pallas and sparse_sharded backends; others raise (use
+        ``run``). A capture that fails on the card raises.
         """
         if not self.supports_fused:
             raise ValueError(
                 f"run_fused supports backends {_FUSED_BACKENDS}, not "
                 f"{self.mix_impl!r}; use run()"
             )
+        _check_mesh(self.engine, self.device)
         if rounds < 1:
             return []
         program = self.engine.program(rounds, kind=self.mix_impl)
@@ -576,7 +615,9 @@ class LMCohortTrainer:
     their params and both optimizer moments bit-exactly (AdamW's shared step
     count advances). Checkpoints save ``(params, opt[, cstate])`` plus the
     step, and ``restore`` resumes bit-identically. As in the reference,
-    ``cfg.opt_dtype`` is not read: the moments are f32.
+    ``cfg.opt_dtype`` is not read: the moments are f32. ``mesh`` is the
+    engine's, for the mesh backends, which mix in ``run`` only (without one,
+    sparse_sharded runs one shard on the trainer's device).
     """
 
     def __init__(
@@ -596,6 +637,7 @@ class LMCohortTrainer:
         faults: str | None = None,
         seed: int = 0,
         data_kwargs: dict | None = None,
+        mesh: mesh_mod.Mesh | None = None,
         device: str | torch.device | None = None,
     ):
         self.cfg = cfg
@@ -605,7 +647,8 @@ class LMCohortTrainer:
         self.data_kwargs = dict(data_kwargs or {})
         self.engine = decavg.GossipEngine(
             topology, backend=backend, matrix=matrix, gossip_every=gossip_every,
-            faults=faults, seed=seed, n=self.num_nodes, device=device,
+            faults=faults, seed=seed, mesh=_own_mesh(mesh, backend, device),
+            n=self.num_nodes, device=device,
         )
         if self.engine.num_nodes != self.num_nodes:
             raise ValueError(
@@ -855,6 +898,7 @@ class LMCohortTrainer:
         verbose: bool = False,
     ) -> list[dict]:
         """Per-round Python loop: the local step and ``engine.mix``, eagerly."""
+        _check_mesh(self.engine, self.device)
         t0 = time.perf_counter()
         if self._begin(rounds):
             return self._finished_resume(rounds, on_round, verbose, t0)

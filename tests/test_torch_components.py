@@ -16,7 +16,7 @@ from repro.optim import sgd as ref_sgd
 from repro.train import losses as ref_losses
 from repro.train import metrics as ref_metrics
 from repro_torch.convert import params_from_numpy, params_to_numpy
-from repro_torch.core import decavg
+from repro_torch.core import decavg, mesh
 from repro_torch.data.loader import NodeLoader
 from repro_torch.models import mlp
 from repro_torch.optim import sgd
@@ -74,18 +74,27 @@ def test_backend_resolution():
     assert decavg.GossipEngine("ring:n=8", sparse_threshold=8, device="cpu").backend == "sparse"
     for backend in ("sparse", "sparse_pallas"):
         assert decavg.GossipEngine("ring:n=8", backend=backend, device="cpu").backend == backend
-    for backend, sl in [("sharded", "slice F"), ("sparse_sharded", "slice F"),
-                        ("permute", "slice F")]:
-        with pytest.raises(NotImplementedError, match=sl):
+    # The mesh backends exist: sparse_sharded builds its default mesh, the
+    # other two need one, as in the reference.
+    eng = decavg.GossipEngine("ring:n=8", backend="sparse_sharded", device="cpu")
+    assert eng.backend == "sparse_sharded" and eng.mesh.shape == {"data": 1}
+    eight = mesh.Mesh([torch.device("cpu")] * 8, ("data",))
+    for backend in ("sharded", "permute"):
+        with pytest.raises(ValueError, match="needs a mesh"):
             decavg.GossipEngine("ring:n=8", backend=backend, device="cpu")
+        assert decavg.GossipEngine("ring:n=8", backend=backend, mesh=eight,
+                                   device="cpu").backend == backend
+    assert decavg.GossipEngine("ring:n=8", mesh=eight, device="cpu").backend == "sharded"
     with pytest.raises(ValueError, match="unknown backend"):
         decavg.GossipEngine("ring:n=8", backend="nope", device="cpu")
     caps = decavg.GossipEngine.capabilities()
     ref_caps = ref_decavg.GossipEngine.capabilities()
-    assert set(caps) == {"dense", "pallas", "sparse", "sparse_pallas"}
+    assert set(caps) == set(ref_caps) == set(decavg.GossipEngine.BACKENDS)
     for b, info in caps.items():
-        assert set(info) == set(ref_caps[b]) and info["fused"] is ref_caps[b]["fused"]
+        assert set(info) == set(ref_caps[b])
+        assert info["fused"] is ref_caps[b]["fused"] and info["faults"] is ref_caps[b]["faults"]
     assert "CUDA" in caps["pallas"]["notes"] and "CUDA" in caps["sparse_pallas"]["notes"]
+    assert "O(E" in caps["sparse_sharded"]["cost"] and "Mesh" in caps["permute"]["requires"]
 
 
 @pytest.mark.parametrize("backend", ["dense", "pallas"])

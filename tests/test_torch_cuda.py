@@ -1,7 +1,8 @@
 """The port's CUDA code on the card: each kernel against its plain version,
-the mixing backends against each other, ``run_fused``'s captured CUDA
-graphs against the per-round loop (faulted and CHOCO rounds too), and serving through the flash-attention
-kernel against the plain attention path.
+the mixing backends against each other (the node-sharded ones too, on meshes
+that repeat the card), ``run_fused``'s captured CUDA graphs against the
+per-round loop (faulted, CHOCO and sharded rounds too), and serving through
+the flash-attention kernel against the plain attention path.
 
 Every test here is marked ``cuda`` and skips without a card. The file imports
 neither jax nor the reference package, so it also runs where only PyTorch is
@@ -16,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import decavg, sparse, topology
+from repro_torch.core import decavg, mesh, sparse, topology
 from repro_torch.data.loader import NodeLoader
 from repro_torch.configs import base as cfgbase
 from repro_torch.kernels import LAUNCHES, reset_launches
@@ -376,6 +377,86 @@ def test_failed_capture_raises_instead_of_running_eagerly(cuda, monkeypatch):
     with pytest.raises(RuntimeError):
         tr.run_fused(3)
     assert all(torch.equal(a, b) for a, b in zip(before, tree_leaves(tr.params)))
+
+
+# -- the node-sharded backends on the card -----------------------------------------
+
+
+def _mlp_tree(n: int, dev, seed: int = 0) -> dict:
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return {"layers": [{"b": torch.randn(n, b, generator=gen, device=dev),
+                        "w": torch.randn(n, a, b, generator=gen, device=dev)}
+                       for a, b in ((64, 32), (32, 10))]}
+
+
+@pytest.mark.parametrize("shards", [1, 8])
+@pytest.mark.parametrize("halo", ["allgather", "ring"])
+@pytest.mark.parametrize("topology_spec", ["ba:n=512,m=2", "ws:n=512,k=8,beta=0.1@rewire=2"])
+def test_sparse_sharded_is_sparse_to_the_bit(cuda, shards, halo, topology_spec):
+    """Every shard's rows summed in the sparse backend's slot order: the same
+    bits as ``sparse`` on the card, for one shard and for eight on one card,
+    over both periods of a rewired schedule."""
+    m = mesh.Mesh([torch.device("cuda", 0)] * shards, ("data",))
+    ref = decavg.GossipEngine(topology_spec, backend="sparse", seed=1, device=cuda)
+    eng = decavg.GossipEngine(topology_spec, backend="sparse_sharded", mesh=m,
+                              halo_schedule=halo, seed=1, device=cuda)
+    params = _mlp_tree(512, cuda)
+    for r in (0, 2):
+        got, want = eng.mix(params, round=r), ref.mix(params, round=r)
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(got), tree_leaves(want)))
+    reset_launches()
+    eng.mix(params)
+    assert not any(LAUNCHES.values())  # plain PyTorch: no hand-written kernel
+
+
+@pytest.mark.parametrize("faults", [None, "churn:p_leave=1.0,p_join=0.0,frac=0.25,start=2"
+                                          "@targeted=hubs;straggler:frac=0.2,delay=2;drop:p_edge=0.1"])
+def test_fused_sharded_rounds_replay_as_cuda_graphs(cuda, monkeypatch, faults):
+    """run_fused captures the 8-shard ring mix once per period slot as a CUDA
+    graph and replays it: loop, fused and the sparse backend's fused run
+    give the same bits (faulted too)."""
+    graphs = []
+    orig = trainer_mod.Staged
+
+    def staged(*a, **k):
+        graphs.append(orig(*a, **k))
+        return graphs[-1]
+
+    monkeypatch.setattr(trainer_mod, "Staged", staged)
+    runs = {}
+    for name, backend, path in (("loop", "sparse_sharded", "run"),
+                                ("fused", "sparse_sharded", "run_fused"),
+                                ("sparse", "sparse", "run_fused")):
+        tr, _, _ = _trainer(cuda, backend, "ws:n=64,k=4,beta=0.1@rewire=2", faults=faults)
+        if backend == "sparse_sharded":
+            tr.engine.mesh = mesh.Mesh([torch.device("cuda", 0)] * 8, ("data",))
+            tr.engine.halo_schedule = "ring"
+        graphs.clear()
+        getattr(tr, path)(5)
+        if path == "run_fused":  # the local steps and the 3 period slots' mixes
+            assert len(graphs) == 4 and all(g.graph is not None for g in graphs)
+        runs[name] = tree_leaves(tr.params) + tree_leaves(tr.momentum)
+    for a, b, c in zip(runs["loop"], runs["fused"], runs["sparse"]):
+        assert torch.equal(a, b) and torch.equal(b, c)
+
+
+def test_trainer_refuses_a_mesh_over_two_cards(cuda):
+    """The trainers keep every node on one card: a mesh over two devices is
+    refused before any round runs (no second card is needed to see it)."""
+    tr, _, _ = _trainer(cuda, "sparse_sharded")
+    tr.engine.mesh = mesh.Mesh([torch.device("cuda", 0), torch.device("cuda", 1)], ("data",))
+    for path in ("run", "run_fused"):
+        with pytest.raises(NotImplementedError, match="several devices"):
+            getattr(tr, path)(2)
+
+
+def test_trainer_default_mesh_is_one_shard_on_its_card(cuda):
+    """Given no mesh, a sparse_sharded trainer runs one shard on its own card,
+    whatever the engine's default (a shard per card) would span."""
+    tr, _, _ = _trainer(cuda, "sparse_sharded")
+    assert tr.engine.mesh.shape == {"data": 1}
+    assert all(mesh.same_device(d, cuda) for d in tr.engine.mesh.device_set)
+    tr.run_fused(2)
 
 
 # -- slice E on the card: faults and CHOCO through the captured graphs -----------

@@ -13,7 +13,7 @@ from repro.core import faults as RF
 from repro.core import mixing as ref_mixing
 from repro.core import sparse as ref_sparse
 from repro.core import topology as ref_topology
-from repro_torch.core import decavg
+from repro_torch.core import decavg, mesh
 from repro_torch.core import faults as F
 from repro_torch.core import topology
 from repro_torch.experiments.spec import ExperimentSpec
@@ -238,11 +238,14 @@ def test_engine_faulted_rounds_match_reference(backend, topo):
 
 def test_engine_gating():
     caps = decavg.GossipEngine.capabilities()
-    assert {b for b, c in caps.items() if c["faults"]} == {"dense", "sparse"}
-    for backend in ("pallas", "sparse_pallas"):
+    faulted = {b for b, c in caps.items() if c["faults"]}
+    assert faulted == {"dense", "sparse", "sparse_sharded"}
+    assert faulted == {b for b, c in ref_decavg.GossipEngine.capabilities().items() if c["faults"]}
+    sixteen = mesh.Mesh([torch.device("cpu")] * 16, ("data",))
+    for backend in ("pallas", "sparse_pallas", "sharded", "permute"):
         with pytest.raises(ValueError, match="does not support faults"):
             decavg.GossipEngine("ring:n=16", backend=backend, faults="drop:p_edge=0.1",
-                                device="cpu")
+                                mesh=sixteen, device="cpu")
     eng = decavg.GossipEngine("ring:n=16", faults="drop:p_edge=0.1", device="cpu")
     with pytest.raises(ValueError, match="round="):
         eng.mix(torch.zeros(16, 3))

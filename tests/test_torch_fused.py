@@ -8,6 +8,8 @@ the CPU ``run_fused`` runs the same staged rounds it captures as CUDA graphs
 on the card.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +23,7 @@ from repro.experiments import presets as ref_presets
 from repro.models.mlp import init_mlp
 from repro.train.trainer import DecentralizedTrainer as RefTrainer
 from repro_torch.convert import params_from_numpy
+from repro_torch.core import decavg
 from repro_torch.data.loader import NodeLoader
 from repro_torch.experiments import presets, runner
 from repro_torch.experiments.spec import ExperimentSpec
@@ -195,21 +198,36 @@ def test_large_n_run_ids_equal_across_packages(preset):
 
 
 def test_large_n_smoke_runs_its_sparse_spec(tmp_path):
-    """The sparse run goes fused end to end; the sparse_sharded one names
-    the slice that ports it."""
+    """Every run of the preset completes fused: the sparse one, and the
+    sparse_sharded one over the default mesh, which the reference's CI gate
+    requires to stay on the fused path. The sparse run learns past chance
+    (mean accuracy > 0.1). The sharded run's 4 rounds on BA N=32 leave its
+    mean near chance on either backend, as an untrained run's, so it is held
+    instead to the same spec on sparse, every number of its final record
+    equal, and to a node past chance (max accuracy > 0.1)."""
     path = str(tmp_path / "s.jsonl")
     summary = runner.run_sweep(presets.get_preset("large_n_smoke"), path, device="cpu")
     specs = {s.run_id: s for s in presets.get_preset("large_n_smoke")}
     finals = ResultsStore(path).finals()
-    assert summary["failed"] == [r for r, s in specs.items() if s.backend == "sparse_sharded"]
-    (ok,) = [r for r, s in specs.items() if s.backend == "sparse"]
-    final = finals[ok]["final"]
-    assert final["fused"] is True and final["backend"] == "sparse"
-    assert np.isfinite(final["mean_acc"]) and final["mean_acc"] > 0.1
-    with pytest.raises(NotImplementedError, match="slice F"):
-        runner.run_spec(specs[summary["failed"][0]], ResultsStore(str(tmp_path / "x.jsonl")),
-                        device="cpu")
+    assert summary["failed"] == [] and summary["ran"] == len(specs) == 2
+    for rid, spec in specs.items():
+        final = finals[rid]["final"]
+        assert final["fused"] is True and final["backend"] == spec.backend
+        assert np.isfinite(final["mean_acc"])
+    by_backend = {s.backend: finals[rid]["final"] for rid, s in specs.items()}
+    assert set(by_backend) == {"sparse", "sparse_sharded"}
+    assert by_backend["sparse"]["mean_acc"] > 0.1
+    (sharded,) = [s for s in specs.values() if s.backend == "sparse_sharded"]
+    on_sparse = runner.run_spec(dataclasses.replace(sharded, backend="sparse"),
+                                ResultsStore(str(tmp_path / "p.jsonl")), device="cpu")["final"]
+    got = by_backend["sparse_sharded"]
+    skip = {"backend", "wall_s"}
+    assert {k: v for k, v in got.items() if k not in skip} == {
+        k: v for k, v in on_sparse.items() if k not in skip}
+    assert got["max_acc"] > 0.1
 
 
 def test_fused_backends_are_the_programs_kinds():
-    assert port_trainer._FUSED_BACKENDS == ("dense", "sparse", "sparse_pallas")
+    assert port_trainer._FUSED_BACKENDS == ("dense", "sparse", "sparse_pallas", "sparse_sharded")
+    assert port_trainer._FUSED_BACKENDS == tuple(
+        b for b, c in decavg.GossipEngine.capabilities().items() if c["fused"])

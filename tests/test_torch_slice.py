@@ -150,18 +150,22 @@ def test_records_keyed_as_the_reference(tmp_path, spec):
 
 
 def test_runner_rejects_what_is_not_ported(tmp_path):
-    """The sharded backends are still slice F's. A faulted spec, which slice
-    E ported, completes, and so does a sweep over two processes. (The lm
-    executor, slice D, runs: tests/test_torch_lm_runner.py.)"""
+    """Every backend of the reference runs through the runner now. A faulted
+    spec completes, a sparse_sharded spec completes fused (its provenance
+    recorded), and both also in a sweep over two processes. (The lm
+    executor runs too: tests/test_torch_lm_runner.py.)"""
     store = ResultsStore(str(tmp_path / "r.jsonl"))
     faulted = ExperimentSpec("ring:n=6", faults="churn:p_leave=0.1", **TINY)
     out = runner.run_spec(faulted, store, device="cpu")
     assert out["status"] == "completed" and out["final"]["faults"] == "churn:p_leave=0.1"
     assert all("alive_count" in r for r in store.curves(faulted.run_id))
-    sharded = ExperimentSpec("ring:n=4", backend="sparse_sharded", **TINY)
+    sharded = ExperimentSpec("ring:n=4", backend="sparse_sharded", model=NARROW, **TINY)
     out = runner.run_spec(sharded, store, raise_on_error=False, device="cpu")
-    assert out["status"] == "failed" and "slice F" in out["error"]
+    assert out["status"] == "completed"
+    assert out["final"]["backend"] == "sparse_sharded" and out["final"]["fused"] is True
     tiny = ExperimentSpec("ring:n=6", model=NARROW, **TINY)
     summary = runner.run_sweep([sharded, tiny], str(tmp_path / "s.jsonl"), processes=2,
                                device="cpu")
-    assert summary["ran"] == 2 and summary["failed"] == [sharded.run_id]
+    assert summary["ran"] == 2 and summary["failed"] == []
+    finals = ResultsStore(str(tmp_path / "s.jsonl")).finals()
+    assert finals[sharded.run_id]["final"]["backend"] == "sparse_sharded"

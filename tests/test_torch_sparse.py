@@ -322,10 +322,11 @@ def test_fused_backends_mirror_capabilities():
     caps = decavg.GossipEngine.capabilities()
     assert set(trainer._FUSED_BACKENDS) == {b for b, c in caps.items() if c["fused"]}
     ref_caps = ref_decavg.GossipEngine.capabilities()
-    assert set(caps) == {"dense", "pallas", "sparse", "sparse_pallas"}
+    assert set(caps) == set(ref_caps)
     for b, info in caps.items():
         assert set(info) == set(ref_caps[b]) and info["fused"] == ref_caps[b]["fused"]
-    assert set(trainer._FUSED_BACKENDS) == set(ref_trainer._LM_FUSED_BACKENDS)
+    assert trainer._FUSED_BACKENDS == ref_trainer._FUSED_BACKENDS
+    assert set(trainer._LM_FUSED_BACKENDS) == set(ref_trainer._LM_FUSED_BACKENDS)
 
 
 @pytest.mark.parametrize("backend,p_chunk", [("sparse", None), ("sparse", "auto"),
@@ -387,8 +388,15 @@ def test_program_sparse_padding_is_exact():
 
 
 def test_program_validates_kind_and_rounds():
+    """Every sparse kind stages, sparse_sharded over the default mesh (one
+    shard on the CPU) even from a dense engine, as in the reference; an
+    unknown kind or no rounds is refused."""
     eng = decavg.GossipEngine("ring:n=8", device="cpu")
+    prog = eng.program(3, kind="sparse_sharded")
+    assert prog.kind == "sparse_sharded" and prog.shards == 1 and prog.sh_ring_send == ()
+    assert prog.sh_halo.shape == (1, 1, 8) and prog.mesh.shape == {"data": 1}
+    assert eng.mesh is None
     with pytest.raises(ValueError, match="kind"):
-        eng.program(3, kind="sparse_sharded")
+        eng.program(3, kind="sharded")
     with pytest.raises(ValueError, match="rounds"):
         eng.program(0)

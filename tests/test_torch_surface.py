@@ -17,7 +17,7 @@ from repro.data.synthetic import make_mnist_like
 from repro.models.mlp import init_mlp
 from repro.train.trainer import DecentralizedTrainer as RefTrainer
 from repro_torch.convert import params_from_numpy
-from repro_torch.core import decavg, mixing
+from repro_torch.core import decavg, mesh, mixing
 from repro_torch.data.loader import NodeLoader
 from repro_torch.experiments import runner, sweep
 from repro_torch.experiments.spec import ExperimentSpec
@@ -167,9 +167,13 @@ def test_mix_backend_override_is_checked():
     eng = decavg.GossipEngine(TOPOLOGY, device="cpu")
     with pytest.raises(ValueError, match="unknown backend"):
         eng.mix(torch.zeros(N, 2), backend="bogus")
-    with pytest.raises(NotImplementedError, match="slice F"):
+    with pytest.raises(ValueError, match="needs a mesh"):
         eng.mix(torch.zeros(N, 2), backend="permute")
-    assert eng.backend == "dense"
+    wrong = mesh.Mesh([torch.device("cpu")] * (N + 1), ("data",))
+    meshed = decavg.GossipEngine(TOPOLOGY, mesh=wrong, backend="dense", device="cpu")
+    with pytest.raises(ValueError, match="num_nodes"):
+        meshed.mix(torch.zeros(N, 2), backend="permute")
+    assert eng.backend == "dense" and meshed.backend == "dense"
 
 
 def test_validate_flag(monkeypatch):

@@ -79,13 +79,16 @@ carries on:
                (3e-5) and bf16 (3e-2): the reference's four test cases, the
                engine's llama3.2-1b shapes (1, S, 32, 8, 64) for S = 128 to
                1024 and (4, 2048, 32, 8, 64), hd 80 and 128, ragged S=1001,
-               and S=2;
+               S=2, and the zoo's hd-128 GQA groups 6, 7 and 8 (48, 56 and
+               64 query heads over 8 KV heads, S=512) and group 7 at S=333;
 11. ftimes   -- times at (1, 1024, 32, 8, 64) in bf16, eagerly and on the
                device alone, as in phase 4: the kernel, its plain version
                and scaled_dot_product_attention, beside the least time the
                card could take; the kernel against scaled_dot_product_attention
                at the engine's other admission buckets, S = 128, 256 and 512;
-               and the host's time to launch one call;
+               the kernel, its plain version and scaled_dot_product_attention
+               at dbrx's prefill (1, 1024, 48, 8, 128) beside the bound; and
+               the host's time to launch one call;
 12. serve    -- llama3.2-1b at full width (16 layers, d_model 2048, bf16,
                weights from seed 0) through Engine(slots=4, cache_len=1024):
                8 requests of 37 to 1000 prompt tokens, 16 new tokens each,
@@ -147,10 +150,36 @@ carries on:
 18. route    -- python -m repro_torch.experiments.serve_eval with its
                defaults (train a star cohort, checkpoint, params-only
                restore, route): router_beats_round_robin and the serve
-               accuracies printed.
+               accuracies printed;
+19. zoo      -- first each zoo arch's reduced config in f32: chunked prefill
+               against token-by-token prefill at 2e-5 and 4 decode steps
+               alike (jamba with dense FFNs; the MoE archs excepted, their
+               routing groups differ), the Engine's tokens identical to
+               generate's (internvl2; the MoE archs' agreement printed) and
+               identical through the flash kernel and the plain path. Then
+               each arch at full width (bf16, weights drawn on the card from
+               seed 0, each freed before the next): rwkv6-3b (32 layers),
+               whisper-base (6 + 6, encoder over 1500 stub frames) and
+               jamba-v0.1-52b (8 of 32 layers) through generate, batch 4 x
+               512 prompt tokens (whisper 432) + 16; dbrx-132b (2 of 40),
+               arctic-480b (1 of 35) and internvl2-76b (4 of 80) through
+               Engine(slots=4, cache_len=1024), 4 requests of 37 to 512
+               tokens + 16, cold then warm, flash launched once per layer per
+               admission, each request's bf16 prefill logits through the
+               kernel within 0.1 of the plain path. Logits finite; parameter
+               counts, prefill ms, decode tokens/s and peak memory printed,
+               and torch.profiler over one prefill and one decode step (an
+               admitting and a decoding Engine step);
+20. zoo_lm   -- python -m repro_torch.launch.train --arch A for every zoo arch
+               (reduced members, 4 on a ring, 3 steps, batch 2 x 64 tokens,
+               CHOCO auto) on sparse_pallas (fused) and, for jamba and dbrx,
+               on pallas (the loop), 4 processes at a time: exit 0, finite
+               records, one launch per leaf per gossip round; then each
+               arch's loop and fused runs on sparse_pallas in process within
+               1e-6, the fused one's blocked launches counted.
 
 The card's name and power limit (nvidia-smi) stand beside the numbers of
-phases 17 and 18.
+phases 17 to 19. A ``[walltime]`` line follows each phase.
 
 The line before the last is a JSON object with one entry per kernel (its
 launches: those of every path above that runs it, each path's counts set to
@@ -198,12 +227,17 @@ LARGE_N_TOPOLOGIES = ("ws:n=1024,k=8,beta=0.1", "torus:rows=32,cols=32",
 LARGE_N_DIMS = (784, 64, 10)
 LARGE_N_LEAF_D = tuple(d for a, b in zip(LARGE_N_DIMS[:-1], LARGE_N_DIMS[1:]) for d in (b, a * b))
 # Flash attention (B, S, H, Hkv, hd, window): the reference's test cases, the
-# engine's llama3.2-1b prefill shapes, the other head dims, ragged and tiny S.
+# engine's llama3.2-1b prefill shapes, the other head dims, ragged and tiny S,
+# and the zoo's hd-128 GQA groups: 6 (dbrx, 48/8), 7 (arctic, 56/8: odd, so
+# a block's second warpgroup idles on the last head) and 8 (internvl2, 64/8).
 FLASH_ENGINE_CASES = [(1, s, 32, 8, 64, None) for s in (128, 256, 512, 1024)] + [
     (4, 2048, 32, 8, 64, None)]
+FLASH_ZOO_CASES = [(1, 512, 48, 8, 128, None), (1, 512, 56, 8, 128, None),
+                   (1, 512, 64, 8, 128, None), (1, 333, 56, 8, 128, None)]
 FLASH_CASES = [(1, 64, 4, 2, 32, None), (2, 100, 8, 2, 32, None), (1, 128, 4, 4, 64, 48),
                (1, 96, 8, 1, 32, 16), *FLASH_ENGINE_CASES, (1, 256, 32, 32, 80, None),
-               (1, 256, 96, 8, 128, None), (1, 1001, 32, 8, 64, None), (1, 2, 32, 8, 64, None)]
+               (1, 256, 96, 8, 128, None), (1, 1001, 32, 8, 64, None), (1, 2, 32, 8, 64, None),
+               *FLASH_ZOO_CASES]
 FLASH_TOL = {torch.float32: 3e-5, torch.bfloat16: 3e-2}
 SERVE_LENS = (37, 100, 128, 200, 333, 512, 777, 1000)
 SERVE_MAX_NEW = 16
@@ -229,10 +263,45 @@ LM_FULL_STEPS = 4
 # default and a same-batch probe of both rates); 3e-5 trains it.
 LM_FULL_LR = 3e-5
 LM_BACKEND_ROUNDS = 3
+# Slice G, phase 19: each zoo arch at full width (bf16, weights from seed 0)
+# with its depth cut to (layers run), served through generate or the Engine.
+ZOO_RUNS = (("rwkv6-3b", 32, "generate"), ("whisper-base", 6, "generate"),
+            ("jamba-v0.1-52b", 8, "generate"), ("dbrx-132b", 2, "engine"),
+            ("arctic-480b", 1, "engine"), ("internvl2-76b", 4, "engine"))
+ZOO_BATCH = 4
+ZOO_PROMPT = 512
+ZOO_ENGINE_LENS = (37, 128, 333, 512)
+WHISPER_FRAMES = 1500  # a 30 s window
+# Phase 20: the zoo's LM cohorts through launch.train (reduced members), the
+# decoder-only archs: a cohort's batches carry no encoder frames, so whisper
+# is refused (the reference's whisper cohort stops at KeyError 'frames').
+# 8 steps at a rate for each optimizer at which the loss falls: the cosine
+# schedule's first step has lr 0, and at the CLI's default 3e-4 SGD moves the
+# loss less than its spread from one round's batch to the next.
+ZOO_LM_ARCHS = ("jamba-v0.1-52b", "dbrx-132b", "arctic-480b", "rwkv6-3b", "internvl2-76b")
+ZOO_LM_STEPS = 8
+ZOO_LM_LR = {"sgd": 0.1, "adamw": 3e-3}
+ZOO_LM_ARGS = ("--nodes", "4", "--topology", "ring", "--steps", str(ZOO_LM_STEPS),
+               "--batch", "2", "--seq", "64")
+# In process, loop against fused over the reference's parity horizon.
+ZOO_LM_ROUNDS = 3
 
 
 def phase(name: str, msg: str) -> None:
     print(f"[{name}] {msg}", flush=True)
+
+
+class Laps:
+    """Wall time of each phase: ``lap(name)`` prints the time since the
+    previous lap (or the start), and the total."""
+
+    def __init__(self):
+        self.t0 = self.last = time.perf_counter()
+
+    def lap(self, name: str) -> None:
+        now = time.perf_counter()
+        phase("walltime", f"{name}: {now - self.last:.2f} s (total {now - self.t0:.2f} s)")
+        self.last = now
 
 
 def fail(msg: str) -> None:
@@ -413,6 +482,7 @@ def main() -> int:
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
+    laps = Laps()
 
     # 1. device
     smi = subprocess.run(
@@ -440,6 +510,8 @@ def main() -> int:
     if args.baseline is not None:
         phase("build", f"baseline sources from {args.baseline} built and loaded")
 
+    laps.lap("1-2 device, build")
+
     # 3. kernel against plain, on the card
     gen = torch.Generator(device=dev).manual_seed(0)
     w_main = main_path_w(dev)
@@ -464,6 +536,8 @@ def main() -> int:
                     fail(f"{name} {dtype} skip={skip}: max_abs_err {err} > {TOL[dtype]}")
                 if name.startswith("leaf") and dtype == torch.float32:
                     main_err = max(main_err, err)
+
+    laps.lap("3 kernel")
 
     # 4. times of one gossip round at the main path's shapes (f32), eagerly
     # (host launch included) and on the device alone (graph replay)
@@ -507,6 +581,8 @@ def main() -> int:
         phase("times", f"gossip round in turns (baseline, current, current, baseline): on the "
                        f"device baseline {spread(dev_base)} ms, current {spread(dev_k)} ms; eagerly "
                        f"baseline {spread(eager_base)} ms, current {spread(eager_k)} ms")
+
+    laps.lap("4 times")
 
     # 5. the main path, through the entry point a user calls
     with tempfile.TemporaryDirectory() as tmp:
@@ -582,6 +658,8 @@ def main() -> int:
     if acc_diff > acc_tol or cons_diff > cons_rtol:
         fail("pallas and dense backends disagree per node")
 
+    laps.lap("5 main")
+
     # 6. the smoke preset's qualitative checks (recorded, not asserted)
     with tempfile.TemporaryDirectory() as tmp:
         path = str(Path(tmp) / "smoke.jsonl")
@@ -595,28 +673,48 @@ def main() -> int:
             {k: checks.get(k) for k in ("hub_beats_edge", "hub_beats_edge_by_family",
                                         "gossip_learns_g2")}))
 
+    laps.lap("6 checks")
+
     # 7-9. slice B: the sparse kernels and the large-N path
     sparse_err = sparse_kernel_checks(dev, gen)
+    laps.lap("7 sparse")
     sparse_times = sparse_round_times(dev, gen, base_sg)
+    laps.lap("8 stimes")
     large_n_launches = large_n_main_path(dev, kind)
+    laps.lap("9 large_n")
     sharded_main_path(dev, kind, smi)
+    laps.lap("9b sharded")
 
     # 10-13. slice C: the flash-attention kernel and serving
     flash_err = flash_kernel_checks(dev, gen)
+    laps.lap("10 flash")
     flash_times = flash_attention_times(dev, gen, base_fa)
+    laps.lap("11 ftimes")
     flash_launches = serve_main_path(dev)
+    laps.lap("12 serve")
     serve_cli()
+    laps.lap("13 cli")
 
     # 14-15. slice E: faults and CHOCO compressed gossip
     faults_main_path(dev, kind)
+    laps.lap("14 faults")
     choco_launches = compress_main_path(dev, kind)
+    laps.lap("15 compress")
     # 16-18. slice D: LLM-cohort training, then routing over a trained cohort
     lm_launches, lm_err = lm_main_path(dev)
+    laps.lap("16 lm")
     full_launches, full_err = lm_full_width(dev, smi)
+    laps.lap("17 lm_full")
     route_cli(smi)
+    laps.lap("18 route")
+    # 19-20. slice G: the rest of the model zoo, served and trained
+    zoo_flash = zoo_main_path(dev, smi)
+    laps.lap("19 zoo")
+    zoo_lm_launches, zoo_lm_err = zoo_lm_main_path(dev, smi)
+    laps.lap("20 zoo_lm")
     path_launches = {**large_n_launches, "gossip_mix": launches["gossip_mix"],
-                     "flash_attention": flash_launches}
-    for part in (choco_launches, lm_launches, full_launches):
+                     "flash_attention": flash_launches + zoo_flash}
+    for part in (choco_launches, lm_launches, full_launches, zoo_lm_launches):
         for name, n in part.items():
             path_launches[name] += n
 
@@ -633,11 +731,12 @@ def main() -> int:
               "src/repro/kernels/gossip_mix.py:106",
               {"ms": t_kernel, "plain_ms": t_plain, "bound_ms": bound,
                "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": t_lib},
-              max(main_err, lm_err["gossip_mix"], full_err["gossip_mix"])),
+              max(main_err, lm_err["gossip_mix"], full_err["gossip_mix"],
+                  zoo_lm_err["gossip_mix"])),
         entry("sparse_gossip_blocked", "src/repro_torch/kernels/csrc/sparse_gossip.cu",
               "src/repro/kernels/sparse_gossip.py:129", sparse_times["sparse_gossip_blocked"],
               max(sparse_err["sparse_gossip_blocked"], lm_err["sparse_gossip_blocked"],
-                  full_err["sparse_gossip_blocked"])),
+                  full_err["sparse_gossip_blocked"], zoo_lm_err["sparse_gossip_blocked"])),
         entry("sparse_gossip", "src/repro_torch/kernels/csrc/sparse_gossip.cu",
               "src/repro/kernels/sparse_gossip.py:196", sparse_times["sparse_gossip"],
               sparse_err["sparse_gossip"]),
@@ -1375,10 +1474,10 @@ def flash_attention_times(dev, gen, baseline=None) -> dict:
     other admission buckets; then the host's time to launch one call."""
     from repro_torch.kernels import flash_attention as fa
 
-    def inputs(s):
-        q = torch.randn(1, s, 32, 64, generator=gen, device=dev).bfloat16()
-        k = torch.randn(1, s, 8, 64, generator=gen, device=dev).bfloat16()
-        v = torch.randn(1, s, 8, 64, generator=gen, device=dev).bfloat16()
+    def inputs(s, h=32, hkv=8, hd=64):
+        q = torch.randn(1, s, h, hd, generator=gen, device=dev).bfloat16()
+        k = torch.randn(1, s, hkv, hd, generator=gen, device=dev).bfloat16()
+        v = torch.randn(1, s, hkv, hd, generator=gen, device=dev).bfloat16()
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # SDPA's (B, H, S, hd) views
         sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
             qt, kt, vt, is_causal=True, enable_gqa=True)
@@ -1419,6 +1518,19 @@ def flash_attention_times(dev, gen, baseline=None) -> dict:
                         f"{time_ms(kernel):.4f} ms, scaled_dot_product_attention "
                         f"{time_ms(sdpa):.4f} ms; bound {bound:.4f} ms (operations)"
                         + (f"; baseline on the device {spread(dev_b_base)} ms" if dev_b_base else ""))
+    # dbrx's prefill of one 1024-token admission: hd 128, GQA group 6.
+    qd, kd, vd, sdpa_d = inputs(1024, 48, 8, 128)
+    t_dk = device_ms(lambda: fa.flash_attention(qd, kd, vd))
+    t_dp = device_ms(lambda: fa.flash_attention_ref(qd, kd, vd), reps=5)
+    t_dl = device_ms(sdpa_d)
+    nbytes = 2 * (2 * qd.numel() + kd.numel() + vd.numel())
+    flops = 4 * 128 * 48 * 1024 * 1025 // 2
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
+    phase("ftimes", f"(1,1024,48,8,128) bf16 causal (dbrx) on the device: kernel {t_dk:.4f} ms, "
+                    f"plain {t_dp:.4f} ms, scaled_dot_product_attention {t_dl:.4f} ms; bound "
+                    f"{max(t_bytes, t_ops):.4f} ms ({'bytes' if t_bytes >= t_ops else 'operations'}: "
+                    f"bytes {t_bytes:.4f} ms, {flops / 1e9:.3f} GFLOP {t_ops:.4f} ms)")
+    del qd, kd, vd, sdpa_d
     # The host's share: the wrapper's checks, the output's allocation and the
     # ctypes launch, timed on the host clock over calls that only enqueue.
     torch.cuda.synchronize()
@@ -1561,38 +1673,42 @@ def profile_serving(params, cfg, prompts, dev) -> None:
     decode) and over one decode step of four active slots. The device's busy
     share is its summed kernel time over the step's host wall time, which the
     profiler itself lengthens."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.serve.engine import Engine
-
-    def one(name, eng):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            eng.step()
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        # Device kernels only: the host ops that launch them report the
-        # same time again.
-        rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
-                if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0]
-        busy_us = sum(r[1] for r in rows)
-        if not rows:
-            phase("profile", f"{name}: the profiler saw no device time (host wall {wall_us:.0f} us)")
-            return
-        top = sorted(rows, key=lambda r: -r[1])[:6]
-        phase("profile", f"{name}: host wall {wall_us:.0f} us, device busy {busy_us:.0f} us "
-                         f"({100 * busy_us / wall_us:.1f}%), {sum(r[2] for r in rows)} kernels; "
-                         "top: " + "; ".join(f"{k[:60]} x{c} {t:.0f} us" for k, t, c in top))
 
     big = Engine(params, cfg, slots=1, cache_len=1024, device=dev)
     big.submit(prompts[-1], max_new=2)
-    one(f"admission of {len(prompts[-1])} tokens + 1 decode", big)
+    profile_once(f"admission of {len(prompts[-1])} tokens + 1 decode", big.step)
     four = Engine(params, cfg, slots=4, cache_len=1024, device=dev)
     for p in prompts[:4]:
         four.submit(p, max_new=SERVE_MAX_NEW)
     four.step()  # the four admissions
-    one("decode step, 4 slots", four)
+    profile_once("decode step, 4 slots", four.step)
+
+
+def profile_once(name: str, fn) -> None:
+    """torch.profiler over one call of ``fn`` (printed, not asserted): host
+    wall, device busy (summed kernel time, a share of the wall, which the
+    profiler itself lengthens), the kernel count and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    # Device kernels only: the host ops that launch them report the same
+    # time again.
+    rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0]
+    busy_us = sum(r[1] for r in rows)
+    if not rows:
+        phase("profile", f"{name}: the profiler saw no device time (host wall {wall_us:.0f} us)")
+        return
+    top = sorted(rows, key=lambda r: -r[1])[:6]
+    phase("profile", f"{name}: host wall {wall_us:.0f} us, device busy {busy_us:.0f} us "
+                     f"({100 * busy_us / wall_us:.1f}%), {sum(r[2] for r in rows)} kernels; "
+                     "top: " + "; ".join(f"{k[:60]} x{c} {t:.0f} us" for k, t, c in top))
 
 
 def serve_cli() -> None:
@@ -1968,6 +2084,351 @@ def lm_full_width(dev, smi: str) -> tuple[dict[str, int], dict[str, float]]:
                 fail(f"[{tag}] the loss did not fall: {first['loss']} -> {last['loss']}")
     errs = lm_full_round_split(dev, smi)
     lm_full_fused_round(dev, smi)
+    return launches, errs
+
+
+# -- 19-20. slice G: the rest of the model zoo ---------------------------------
+
+def free_card() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def zoo_reduced_checks(dev) -> None:
+    """Phase 19, first part: each zoo arch's reduced config in f32 on the
+    card. Chunked prefill against token-by-token prefill at 2e-5, then 4
+    decode steps alike (MoE patterns excepted: a prompt routes as one group,
+    decode as one-token groups; jamba's Mamba path is checked with its FFNs
+    dense); the Engine's tokens identical to generate's for internvl2, their
+    agreement printed for the MoE archs (the slot batching changes their
+    routing groups); Engine tokens through the flash kernel identical to the
+    plain path's."""
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.models import frontends
+    from repro_torch.models import transformer as TF
+    from repro_torch.serve import decode as SD
+    from repro_torch.serve.engine import Engine, engine_ok
+
+    rng = np.random.default_rng(0)
+    for arch, _, _ in ZOO_RUNS:
+        cfg = cfgbase.get(arch).reduced()
+        checked = cfg
+        if arch.startswith("jamba"):
+            checked = dataclasses.replace(cfg, moe=None, pattern=tuple(
+                dataclasses.replace(sp, ffn="dense") for sp in cfg.pattern))
+        params = TF.init_params(torch.Generator(device=dev).manual_seed(0), checked, device=dev)
+        memory = None
+        if cfg.enc_dec:
+            frames = frontends.audio_frames(torch.Generator(device=dev).manual_seed(1), cfg, 2, 40)
+            with torch.no_grad():
+                memory = TF.encode(params, cfg, frames)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 29))).to(dev)
+        if all(sp.ffn != "moe" for sp in checked.pattern):
+            lc, cc = SD.prefill(params, checked, toks, TF.init_cache(checked, 2, 64, device=dev),
+                                memory=memory, flash=False)
+            ls, cs = SD.prefill_sequential(params, checked, toks,
+                                           TF.init_cache(checked, 2, 64, device=dev),
+                                           memory=memory)
+            errs = [float((lc - ls).abs().max())]
+            tok = lc.argmax(dim=-1)
+            for _ in range(4):
+                lc, cc = TF.decode_step(params, checked, tok, cc, memory=memory)
+                ls, cs = TF.decode_step(params, checked, tok, cs, memory=memory)
+                errs.append(float((lc - ls).abs().max()))
+                tok = lc.argmax(dim=-1)
+            phase("zoo", f"{checked.arch_id}{' (FFNs dense)' if checked is not cfg else ''} "
+                         f"f32: chunked vs token-by-token prefill logits max abs diff "
+                         f"{errs[0]:.3e}, then 4 decode steps {max(errs[1:]):.3e} (tol 2e-5)")
+            if not max(errs) <= 2e-5 or not torch.isfinite(lc).all():
+                fail(f"{checked.arch_id}: chunked and sequential prefill disagree: {errs}")
+        if engine_ok(cfg):
+            prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+                       for n in (5, 9, 17, 30)]
+            out = {}
+            for flash in (True, False):
+                eng = Engine(params, cfg, slots=2, cache_len=64, flash=flash, device=dev)
+                rids = [eng.submit(p, max_new=8) for p in prompts]
+                got = eng.run()
+                out[flash] = [got[r] for r in rids]
+            same_flash = all(np.array_equal(a, b) for a, b in zip(out[True], out[False]))
+            alone = [SD.generate(params, cfg, torch.from_numpy(p)[None].to(dev),
+                                 TF.init_cache(cfg, 1, 64, device=dev), steps=8)[0].cpu().numpy()
+                     for p in prompts]
+            agree = sum(int((a == b).sum()) for a, b in zip(out[True], alone))
+            moe = any(sp.ffn == "moe" for sp in cfg.pattern)
+            phase("zoo", f"{cfg.arch_id} f32 Engine(slots=2): tokens through the flash kernel "
+                         f"and the plain path identical: {same_flash}; Engine vs generate "
+                         f"tokens agree {agree}/{8 * len(prompts)}"
+                         + (" (printed: MoE routing groups follow the slot batching)" if moe
+                            else ""))
+            if not same_flash:
+                fail(f"{cfg.arch_id}: Engine tokens through the kernel differ from the plain path")
+            if not moe and agree != 8 * len(prompts):
+                fail(f"{cfg.arch_id}: Engine tokens differ from generate's")
+        del params
+        free_card()
+
+
+def zoo_generate(params, cfg, dev, smi: str) -> None:
+    """Phase 19: batch 4, one prompt length (512; whisper 432, its decoder
+    context less the new tokens) through ``generate``, 16 greedy tokens;
+    whisper first encodes 1500 stub frames. A cold run, then a warm one
+    timed; then the prefill timed alone, and the 16 greedy decode steps that
+    follow it timed alone (decode tokens/s is 64 tokens over their time)."""
+    from repro_torch.models import frontends
+    from repro_torch.models import transformer as TF
+    from repro_torch.serve import decode as SD
+
+    s = min(ZOO_PROMPT, cfg.max_target_len - SERVE_MAX_NEW) if cfg.enc_dec else ZOO_PROMPT
+    rng = np.random.default_rng(0)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (ZOO_BATCH, s))).to(dev)
+    memory, t_enc = None, 0.0
+    if cfg.enc_dec:
+        frames = frontends.audio_frames(torch.Generator(device=dev).manual_seed(1), cfg,
+                                        ZOO_BATCH, WHISPER_FRAMES)
+        with torch.no_grad():
+            TF.encode(params, cfg, frames)  # cold
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            memory = TF.encode(params, cfg, frames)
+            torch.cuda.synchronize()
+            t_enc = (time.perf_counter() - t0) * 1e3
+        if not torch.isfinite(memory).all():
+            fail(f"{cfg.arch_id}: encoder memory is not finite")
+
+    def cache(room: int = 0):
+        return TF.init_cache(cfg, ZOO_BATCH, s + SERVE_MAX_NEW + room, device=dev)
+
+    cold = SD.generate(params, cfg, prompt, cache(), steps=SERVE_MAX_NEW, memory=memory)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    toks = SD.generate(params, cfg, prompt, cache(), steps=SERVE_MAX_NEW, memory=memory)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    c = cache(room=1)  # one step more, for the profiled decode step below
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, c = SD.prefill(params, cfg, prompt, c, memory=memory)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    tok = SD.sample(logits, 0.0, None)
+    t0 = time.perf_counter()
+    for _ in range(SERVE_MAX_NEW):  # generate's decode steps
+        step_logits, c = TF.decode_step(params, cfg, tok, c, memory=memory)
+        tok = SD.sample(step_logits, 0.0, None)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    finite = bool(torch.isfinite(logits).all()) and bool(torch.isfinite(step_logits).all())
+    same = torch.equal(cold, toks)
+    ok_range = bool(((toks >= 0) & (toks < cfg.vocab_size)).all())
+    n_tok = ZOO_BATCH * SERVE_MAX_NEW
+    phase("zoo", f"{cfg.arch_id} generate, batch {ZOO_BATCH} x {s} prompt tokens + "
+                 f"{SERVE_MAX_NEW} new"
+                 + (f" (encoder over {WHISPER_FRAMES} stub frames {t_enc:.2f} ms)" if cfg.enc_dec
+                    else "")
+                 + f": generate {t_gen * 1e3:.2f} ms; alone, prefill {t_pre * 1e3:.2f} ms and "
+                   f"{SERVE_MAX_NEW} decode steps {t_dec * 1e3:.2f} ms, decode "
+                   f"{n_tok / t_dec:.1f} tokens/s; logits finite {finite}; warm tokens equal "
+                   f"cold {same}; peak "
+                   f"{peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} above the weights); "
+                   f"{smi}")
+    if not (finite and same and ok_range):
+        fail(f"{cfg.arch_id}: finite {finite}, warm == cold {same}, tokens in range {ok_range}")
+    profile_once(f"{cfg.arch_id} prefill of {ZOO_BATCH} x {s} tokens",
+                 lambda: SD.prefill(params, cfg, prompt, cache(), memory=memory))
+    profile_once(f"{cfg.arch_id} decode step, batch {ZOO_BATCH}",
+                 lambda: TF.decode_step(params, cfg, tok, c, memory=memory))
+
+
+def zoo_engine(params, cfg, dev, smi: str) -> int:
+    """Phase 19: four requests of 37 to 512 prompt tokens through
+    Engine(slots=4, cache_len=1024), 16 greedy tokens each, cold then warm;
+    in the warm run flash launched once per attention layer per admission;
+    each request's prefill (as admitted: padded to its bucket) through the
+    kernel within 0.1 of the plain path, its time printed. Returns the warm
+    run's flash launches."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import transformer as TF
+    from repro_torch.serve import decode as SD
+    from repro_torch.serve.engine import Engine, _bucket
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32) for n in ZOO_ENGINE_LENS]
+    cold, _, _ = serve_requests(params, cfg, prompts, dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    toks, ttft, decode = serve_requests(params, cfg, prompts, dev)
+    launches = LAUNCHES["flash_attention"]
+    peak = torch.cuda.max_memory_allocated()
+    want = cfg.num_layers * len(prompts)
+    same = all(np.array_equal(toks[r], cold[r]) for r in toks)
+    phase("zoo", f"{cfg.arch_id} Engine(slots=4, cache_len=1024), {len(prompts)} requests x "
+                 f"{SERVE_MAX_NEW} new tokens: flash launches {launches} (want {cfg.num_layers} "
+                 f"layers x {len(prompts)} admissions = {want}); time to first token "
+                 + ", ".join(f"{t * 1e3:.1f}" for t in ttft)
+                 + f" ms; decode {decode['tokens'] / decode['s']:.1f} tokens/s; warm tokens "
+                   f"equal cold {same}; peak {peak / 2**30:.3f} GiB "
+                   f"({(peak - base) / 2**30:.3f} above the weights); {smi}")
+    if launches != want:
+        fail(f"{cfg.arch_id}: flash launched {launches} times in the Engine run, want {want}")
+    if not same or any(not ((t >= 0) & (t < cfg.vocab_size)).all() for t in toks.values()):
+        fail(f"{cfg.arch_id}: the Engine's tokens are out of range or differ from the cold run")
+    worst = 0.0
+    for n, p in zip(ZOO_ENGINE_LENS, prompts):
+        padded = torch.zeros((1, min(_bucket(n), 1024)), dtype=torch.int32, device=dev)
+        padded[0, :n] = torch.from_numpy(p).to(dev)
+        length = torch.tensor([n], dtype=torch.int32, device=dev)
+        logits, ms = {}, {}
+        for flash in (True, False):
+            row = TF.init_cache(cfg, 1, 1024, per_slot=True, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits[flash], _ = SD.prefill(params, cfg, padded, row, length=length, flash=flash)
+            torch.cuda.synchronize()
+            ms[flash] = (time.perf_counter() - t0) * 1e3
+        if not all(bool(torch.isfinite(x).all()) for x in logits.values()):
+            fail(f"{cfg.arch_id}: prompt {n}: prefill logits are not finite")
+        err = float((logits[True] - logits[False]).abs().max())
+        worst = max(worst, err)
+        phase("zoo", f"{cfg.arch_id} prompt {n:4d} (bucket {padded.shape[1]:4d}): prefill "
+                     f"{ms[True]:.2f} ms through the kernel, {ms[False]:.2f} ms plain; logits "
+                     f"max_abs_err {err:.3e} (tol {SERVE_LOGIT_TOL})")
+    if not worst <= SERVE_LOGIT_TOL:
+        fail(f"{cfg.arch_id}: bf16 prefill logits through the kernel differ by {worst}")
+    eng = Engine(params, cfg, slots=4, cache_len=1024, device=dev)
+    for p in prompts:
+        eng.submit(p, max_new=SERVE_MAX_NEW)
+    profile_once(f"{cfg.arch_id} Engine step admitting {len(prompts)} requests", eng.step)
+    profile_once(f"{cfg.arch_id} Engine decode step, {len(prompts)} slots", eng.step)
+    return launches
+
+
+def zoo_main_path(dev, smi: str) -> int:
+    """Phase 19; returns the flash kernel's launches in the warm Engine runs."""
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.models import transformer as TF
+
+    zoo_reduced_checks(dev)
+    flash_launches = 0
+    for arch, layers, route in ZOO_RUNS:
+        full = cfgbase.get(arch)
+        cfg = dataclasses.replace(full, num_layers=layers)
+        free_card()
+        t0 = time.perf_counter()
+        params = TF.init_params(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+        torch.cuda.synchronize()
+        n_params = TF.param_count(params)
+        phase("zoo", f"{arch}: {layers} of {full.num_layers} layers, d_model {cfg.d_model}, "
+                     f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.hd}: {n_params} "
+                     f"{cfg.param_dtype} parameters ({n_params * 2 / 1e9:.2f} GB), drawn on the "
+                     f"card in {time.perf_counter() - t0:.2f} s")
+        if route == "generate":
+            zoo_generate(params, cfg, dev, smi)
+        else:
+            flash_launches += zoo_engine(params, cfg, dev, smi)
+        del params
+    free_card()
+    return flash_launches
+
+
+def zoo_lm_main_path(dev, smi: str) -> tuple[dict[str, int], dict[str, float]]:
+    """Phase 20: each decoder-only zoo arch's reduced members (4 on a ring,
+    f32) through python -m repro_torch.launch.train on sparse_pallas (fused:
+    the blocked kernel in CUDA graphs), and jamba's and dbrx's on pallas (the
+    loop, gossip_mix), 4 processes at a time: exit 0, finite records, one
+    launch per leaf per gossip round, a falling loss. Then each arch's loop
+    and fused runs on sparse_pallas in process, held within 1e-6, and both
+    kernels on the fused run's leaves against the plain ``W @ P``. Returns
+    the CLI runs' launches and each kernel's max abs error on these leaves."""
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.experiments.store import ResultsStore
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import transformer as TF
+    from repro_torch.train.trainer import LMCohortTrainer
+    from repro_torch.tree import tree_leaves
+
+    runs = [(arch, "sparse_pallas") for arch in ZOO_LM_ARCHS] + [
+        ("jamba-v0.1-52b", "pallas"), ("dbrx-132b", "pallas")]
+    name_of = {"pallas": "gossip_mix", "sparse_pallas": "sparse_gossip_blocked"}
+    launches = {"gossip_mix": 0, "sparse_gossip_blocked": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        def one(run):
+            arch, backend = run
+            store = str(Path(tmp) / f"{arch}-{backend}.jsonl")
+            lr = ZOO_LM_LR[cfgbase.get(arch).optimizer]
+            cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
+                   *ZOO_LM_ARGS, "--lr", str(lr), "--mix-backend", backend, "--store", store]
+            t0 = time.perf_counter()
+            res = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=ROOT,
+                                 env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+            return run, cmd, res, store, time.perf_counter() - t0
+
+        with ThreadPoolExecutor(max_workers=4) as pool:
+            results = list(pool.map(one, runs))
+        for (arch, backend), cmd, res, store_path, wall in results:
+            if res.returncode != 0:
+                fail(f"{' '.join(cmd[1:])} exited {res.returncode}:\n{res.stderr[-4000:]}")
+            cfg = cfgbase.get(arch).reduced()
+            leaves = len(tree_leaves(TF.init_params(0, cfg, device="meta")))
+            store = ResultsStore(store_path)
+            (rid, end), = store.finals().items()
+            records, final = store.curves(rid), end["final"]
+            finite = all(math.isfinite(r[k]) for r in records for k in ("loss", "lr")) and \
+                math.isfinite(final["loss"]) and math.isfinite(final["consensus_mean"])
+            got = dict(re.findall(r"(\w+)=(\d+)", res.stdout.split("kernel launches", 1)[1]
+                                  .splitlines()[0]))
+            name = name_of[backend]
+            n = int(got[name])
+            launches[name] += n
+            want = leaves * ZOO_LM_STEPS
+            first, last = records[0], records[-1]
+            phase("zoo_lm", f"{arch} {backend} ({'fused' if final['fused'] else 'loop'}, "
+                            f"compress {final['compress']}, {final['members_m']} M a member, "
+                            f"optimizer {cfg.optimizer}, lr {ZOO_LM_LR[cfg.optimizer]:g}): loss "
+                            f"{first['loss']:.4f} (round {first['round']}) -> {last['loss']:.4f} "
+                            f"(round {last['round']}), {name} launches {n} (want {leaves} leaves "
+                            f"x {ZOO_LM_STEPS} rounds = {want}); {wall:.2f} s for the process")
+            if not finite or n != want or final["fused"] != (backend == "sparse_pallas"):
+                fail(f"{arch} {backend}: finite {finite}, {name} launched {n} (want {want}), "
+                     f"fused {final['fused']}")
+            if not last["loss"] < first["loss"]:
+                fail(f"{arch} {backend}: the loss did not fall: {first['loss']} -> {last['loss']}")
+
+    errs = {"gossip_mix": 0.0, "sparse_gossip_blocked": 0.0}
+    for arch in ZOO_LM_ARCHS:
+        cfg = cfgbase.get(arch).reduced()
+        kw = dict(nodes=4, batch=2, seq=32, lr=1e-3, backend="sparse_pallas", device=dev)
+        loop = LMCohortTrainer("ring:n=4", cfg, **kw)
+        h_loop = loop.run(ZOO_LM_ROUNDS, eval_every=ZOO_LM_ROUNDS)
+        fused = LMCohortTrainer("ring:n=4", cfg, **kw)
+        reset_launches()
+        h_fused = fused.run_fused(ZOO_LM_ROUNDS, eval_every=ZOO_LM_ROUNDS)
+        torch.cuda.synchronize()
+        n_leaves = len(tree_leaves(fused.params))
+        d = max(float((a - b).abs().max())
+                for a, b in zip(tree_leaves(loop.params), tree_leaves(fused.params)))
+        dl = abs(h_loop[-1]["loss"] - h_fused[-1]["loss"])
+        blocked = LAUNCHES["sparse_gossip_blocked"]
+        phase("zoo_lm", f"{cfg.arch_id} sparse_pallas compress {fused.compress}, "
+                        f"{ZOO_LM_ROUNDS} rounds: loop vs fused params max abs diff {d:.3e}, "
+                        f"loss {dl:.3e} (tol 1e-6); fused blocked-kernel launches {blocked} "
+                        f"(want {n_leaves} x {ZOO_LM_ROUNDS})")
+        if not (d <= 1e-6 and dl <= 1e-6) or blocked != n_leaves * ZOO_LM_ROUNDS:
+            fail(f"{cfg.arch_id}: loop and fused disagree ({d}, {dl}) or launches {blocked}")
+        arch_errs = lm_mix_checks("ring:n=4", tree_leaves(fused.params), dev)
+        phase("zoo_lm", f"{cfg.arch_id}: the kernels on its {n_leaves} trained leaves against "
+                        f"W @ P: " + ", ".join(f"{k} max_abs_err={v:.3e}"
+                                              for k, v in arch_errs.items())
+                        + f" (tol {TOL[torch.float32]:g})")
+        for k, v in arch_errs.items():
+            errs[k] = max(errs[k], v)
+        del loop, fused
+        free_card()
     return launches, errs
 
 

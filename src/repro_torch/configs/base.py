@@ -6,10 +6,8 @@ engine read. ``pattern`` is one period of layers; the stack is the pattern
 tiled ``num_groups`` times, and the parameters of each layer of the period
 carry a leading group axis (the reference scans over it; the port loops).
 
-The port runs the attention-only, dense-FFN, decoder-only archs. Their
-configs live beside this module, one file each. The ``moe``, ``mamba`` and
-``rwkv`` fields stay, but must be ``None``: those blocks come with slice G
-(ROADMAP), and ``get`` of an arch that needs them raises.
+One file per assigned architecture lives beside this module, each with its
+source in ``source``; ``get`` resolves an arch id or alias to its config.
 """
 
 from __future__ import annotations
@@ -20,7 +18,11 @@ from typing import Any, Literal
 
 import torch
 
-__all__ = ["ArchConfig", "LayerSpec", "ASSIGNED_ARCHS", "PORTED_ARCHS", "get", "all_arch_ids"]
+from repro_torch.models.mamba import MambaSpec
+from repro_torch.models.moe import MoESpec
+from repro_torch.models.rwkv import RWKVSpec
+
+__all__ = ["ArchConfig", "LayerSpec", "ASSIGNED_ARCHS", "get", "all_arch_ids"]
 
 Mixer = Literal["attn", "mamba", "rwkv"]
 Ffn = Literal["dense", "moe", "rwkv", "none"]
@@ -52,10 +54,9 @@ class ArchConfig:
     # Layer pattern (one period; tiled). Default: uniform attn+dense.
     pattern: tuple[LayerSpec, ...] = (LayerSpec(),)
 
-    # The reference's MoE / Mamba / RWKV specs: None in this port (slice G).
-    moe: Any = None
-    mamba: Any = None
-    rwkv: Any = None
+    moe: MoESpec | None = None
+    mamba: MambaSpec | None = None
+    rwkv: RWKVSpec | None = None
 
     # Sliding-window width of the long-context variant; full attention
     # unless ``always_window`` is set.
@@ -80,13 +81,6 @@ class ArchConfig:
     smoke_batch: int = 2
     smoke_seq: int = 32
 
-    def __post_init__(self) -> None:
-        for name in ("moe", "mamba", "rwkv"):
-            if getattr(self, name) is not None:
-                raise NotImplementedError(
-                    f"{self.arch_id}: {name} blocks are not ported yet (ROADMAP slice G)"
-                )
-
     @property
     def hd(self) -> int:
         return self.head_dim or (self.d_model // max(self.num_heads, 1))
@@ -107,11 +101,27 @@ class ArchConfig:
         return getattr(torch, self.param_dtype)
 
     def reduced(self) -> "ArchConfig":
-        """Smoke-test variant: <=2 periods, d_model<=256, f32 params."""
+        """Smoke-test variant: <=2 periods, d_model<=256, <=4 experts, f32
+        params."""
         d_model = min(self.d_model, 256)
         hd = 32
         heads = max(2, min(self.num_heads, d_model // hd))
         kv = heads if self.num_kv_heads == self.num_heads else max(1, heads // 2)
+        moe = None
+        if self.moe is not None:
+            moe = dataclasses.replace(
+                self.moe,
+                num_experts=min(self.moe.num_experts, 4),
+                top_k=min(self.moe.top_k, 2),
+                d_ff=min(self.moe.d_ff, 448),
+                dense_d_ff=min(self.moe.dense_d_ff, 448) if self.moe.dense_d_ff else 0,
+            )
+        rwkv = None
+        if self.rwkv is not None:
+            rwkv = dataclasses.replace(self.rwkv, head_dim=hd, decay_lora=16, chunk=8)
+        mamba = None
+        if self.mamba is not None:
+            mamba = dataclasses.replace(self.mamba, d_state=8, chunk=8)
         return dataclasses.replace(
             self,
             arch_id=self.arch_id + "-reduced",
@@ -123,6 +133,9 @@ class ArchConfig:
             d_ff=min(self.d_ff, 512),
             vocab_size=min(self.vocab_size, 512),
             enc_layers=min(self.enc_layers, 2),
+            moe=moe,
+            rwkv=rwkv,
+            mamba=mamba,
             sliding_window=16,
             param_dtype="float32",
             num_nodes_single_pod=4,
@@ -143,10 +156,6 @@ ASSIGNED_ARCHS = (
     "internvl2_76b",
 )
 
-# Attention-only, dense-FFN, decoder-only: the archs this port runs.
-PORTED_ARCHS = ("llama32_1b", "stablelm_3b", "minicpm_2b", "mistral_large_123b")
-_PORTED_MODULES = PORTED_ARCHS + ("paper_mlp",)
-
 _ALIASES = {name.replace("_", "-"): name for name in ASSIGNED_ARCHS} | {
     "stablelm-3b": "stablelm_3b",
     "mistral-large-123b": "mistral_large_123b",
@@ -164,19 +173,13 @@ _ALIASES = {name.replace("_", "-"): name for name in ASSIGNED_ARCHS} | {
 
 def get(arch_id: str) -> Any:
     """The config of ``arch_id`` (module name or alias; ``paper-mlp`` gives
-    the paper MLP's own dataclass, as in the reference). The reference's
-    other archs (MoE, SSM, hybrid, enc-dec, vlm) raise NotImplementedError."""
+    the paper MLP's own dataclass, as in the reference)."""
     mod_name = _ALIASES.get(arch_id, arch_id.replace("-", "_").replace(".", ""))
-    if mod_name not in _PORTED_MODULES:
-        if mod_name in ASSIGNED_ARCHS:
-            raise NotImplementedError(
-                f"{arch_id}: not ported yet; the port runs the attention-only dense "
-                f"archs {PORTED_ARCHS}, the rest of the zoo is ROADMAP slice G"
-            )
+    if mod_name not in ASSIGNED_ARCHS + ("paper_mlp",):
         raise ValueError(f"unknown arch id {arch_id!r}; known: {ASSIGNED_ARCHS}")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.CONFIG
 
 
 def all_arch_ids() -> tuple[str, ...]:
-    return PORTED_ARCHS
+    return ASSIGNED_ARCHS

@@ -2,8 +2,11 @@
 cache. The port of ``repro/launch/serve.py``: the same flags (it runs the
 arch's ``.reduced()`` config), plus ``--device``.
 
-Run:  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b --gen 32
+Run:  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b --gen 32
       PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+
+Every arch of ``configs.base.ASSIGNED_ARCHS`` serves; an enc-dec arch
+(whisper-base) first encodes 32 stub frames into its decoder's memory.
 
 Without ``--device`` it runs on the card, and raises where there is none.
 """
@@ -44,6 +47,15 @@ def main(argv: list[str] | None = None) -> torch.Tensor:
     cache_len = SD.cache_len_for(cfg, total, long_context=args.long_context)
     cache = TF.init_cache(cfg, args.batch, cache_len, device=dev)
 
+    kw = {}
+    if cfg.enc_dec:
+        # Stub audio: 32 frames of unit normals, encoded into the memory the
+        # decoder cross-attends (the reference's frames).
+        frames = torch.randn((args.batch, 32, cfg.d_model), device=dev,
+                             generator=torch.Generator(device=dev).manual_seed(2))
+        with torch.no_grad():
+            kw["memory"] = TF.encode(params, cfg, frames.to(cfg.dtype()))
+
     print(
         f"arch={cfg.arch_id} batch={args.batch} cache_len={cache_len} "
         f"({'sliding-window' if args.long_context else 'full'}) on {device_name(dev)}"
@@ -52,7 +64,7 @@ def main(argv: list[str] | None = None) -> torch.Tensor:
     toks = SD.generate(
         params, cfg, prompt, cache, steps=args.gen,
         generator=torch.Generator(device=dev).manual_seed(args.seed + 2),
-        temperature=args.temperature,
+        temperature=args.temperature, **kw,
     )
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)

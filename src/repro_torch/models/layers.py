@@ -255,13 +255,32 @@ class AttnSpec:
     flash: bool = False
 
 
+# Draws are made in slabs of at most this many values.
+_DRAW_SLAB = 1 << 28
+
+
 def _normal(gen: torch.Generator | None, shape: tuple[int, ...], scale: float,
             dtype) -> torch.Tensor:
     """N(0, scale^2) draws from ``gen`` on its device; ``gen=None`` gives a
-    tensor on the ``meta`` device (shape and dtype only, nothing drawn)."""
+    tensor on the ``meta`` device (shape and dtype only, nothing drawn).
+    The draws go into the leaf slab by slab, straight into its dtype, so no
+    f32 copy of a large leaf exists (arctic's expert stacks hold 4.5 G
+    values); a leaf of at most 2^28 values is one slab."""
     if gen is None:
         return torch.empty(shape, dtype=dtype, device="meta")
-    return torch.randn(shape, generator=gen, device=gen.device).mul_(scale).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    flat = out.view(-1)
+    for i in range(0, flat.numel(), _DRAW_SLAB):
+        m = min(_DRAW_SLAB, flat.numel() - i)
+        flat[i:i + m] = torch.randn(m, generator=gen, device=gen.device).mul_(scale)
+    return out
+
+
+def _full(gen: torch.Generator | None, shape: tuple[int, ...], value: float,
+          dtype) -> torch.Tensor:
+    """A constant leaf on ``gen``'s device (``meta`` for ``gen=None``)."""
+    dev = torch.device("meta") if gen is None else gen.device
+    return torch.full(shape, value, dtype=dtype, device=dev)
 
 
 def init_attention(gen: torch.Generator, d_model: int, spec: AttnSpec, dtype,

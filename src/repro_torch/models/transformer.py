@@ -1,9 +1,11 @@
-"""Decoder-only LMs of attention + dense-FFN layers, built from one
+"""Model assembly: decoder-only LMs (dense, MoE, SSM, hybrid), the
+whisper-style encoder-decoder and the VLM backbone, all built from one
 ``ArchConfig``. The port of ``repro/models/transformer.py``.
 
 Public API (plain functions over parameter dicts of tensors):
   init_params(generator, cfg, device=None)       -> params
   forward(params, cfg, tokens, ..., remat=False) -> (logits, moe_aux)
+  encode(params, cfg, frames)                    -> encoder memory (enc-dec)
   init_cache(cfg, batch, cache_len, dtype, ...)  -> stacked per-layer caches
   prefill_forward(params, cfg, tokens, cache)    -> (last logits, cache)
   decode_step(params, cfg, token, cache)         -> (logits, cache)
@@ -13,11 +15,9 @@ layer of the pattern, each leaf with a leading group axis G
 (``cfg.num_groups``), so a JAX parameter tree carries over as it is. A
 Python loop over G takes the place of the reference's ``lax.scan``. Caches
 are stacked the same way, with real (not broadcast) tensors per group, and
-are updated in place (see ``layers``).
-
-Not ported yet (ROADMAP slice G): the mamba, rwkv and moe mixers and FFNs,
-the encoder (``encode``, ``memory``, cross-attention stacks) and VLM prefix
-embeddings; they raise NotImplementedError.
+are updated in place (see ``layers``, ``mamba``, ``rwkv``). The encoder's
+blocks carry a leading layer axis (``cfg.enc_layers``), and the decoder's
+cross-attention a leading group axis, as in the reference.
 """
 
 from __future__ import annotations
@@ -30,10 +30,14 @@ import torch.utils.checkpoint
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as Mb
+from repro_torch.models import moe as Moe
+from repro_torch.models import rwkv as Rk
 from repro_torch.tree import tree_leaves
 
 __all__ = [
     "decode_step",
+    "encode",
     "forward",
     "init_cache",
     "init_params",
@@ -42,7 +46,6 @@ __all__ = [
 ]
 
 PyTree = Any
-_LATER = "not ported yet (ROADMAP slice G)"
 
 
 def _attn_spec(cfg: ArchConfig, *, window: int | None, flash: bool = False) -> L.AttnSpec:
@@ -55,16 +58,6 @@ def _attn_spec(cfg: ArchConfig, *, window: int | None, flash: bool = False) -> L
         window=window,
         flash=flash,
     )
-
-
-def _check_supported(cfg: ArchConfig) -> None:
-    for spec in cfg.pattern:
-        if spec.mixer != "attn":
-            raise NotImplementedError(f"{cfg.arch_id}: the {spec.mixer} mixer is {_LATER}")
-        if spec.ffn not in ("dense", "none"):
-            raise NotImplementedError(f"{cfg.arch_id}: the {spec.ffn} FFN is {_LATER}")
-    if cfg.enc_dec:
-        raise NotImplementedError(f"{cfg.arch_id}: encoder-decoder models are {_LATER}")
 
 
 # ---------------------------------------------------------------------------
@@ -82,12 +75,44 @@ def _init_norm(cfg: ArchConfig, dtype, device, lead: tuple[int, ...] = ()) -> Py
 def _init_layer(gen: torch.Generator, cfg: ArchConfig, spec: LayerSpec, dtype) -> PyTree:
     lead = (cfg.num_groups,)
     dev = torch.device("meta") if gen is None else gen.device
+    d = cfg.d_model
     p: PyTree = {"norm1": _init_norm(cfg, dtype, dev, lead),
                  "norm2": _init_norm(cfg, dtype, dev, lead)}
-    p["attn"] = L.init_attention(gen, cfg.d_model, _attn_spec(cfg, window=None), dtype, lead)
+    if spec.mixer == "attn":
+        p["attn"] = L.init_attention(gen, d, _attn_spec(cfg, window=None), dtype, lead)
+    elif spec.mixer == "mamba":
+        p["mamba"] = Mb.init_mamba(gen, d, cfg.mamba, dtype, lead)
+    elif spec.mixer == "rwkv":
+        p["rwkv"] = Rk.init_rwkv(gen, d, cfg.rwkv, dtype, lead)
     if spec.ffn == "dense":
-        p["ffn"] = L.init_ffn(gen, cfg.d_model, cfg.d_ff, dtype, lead)
+        p["ffn"] = L.init_ffn(gen, d, cfg.d_ff, dtype, lead)
+    elif spec.ffn == "moe":
+        p["moe"] = Moe.init_moe(gen, d, cfg.moe, dtype, lead)
+    elif spec.ffn == "rwkv":
+        p["ffn"] = Rk.init_rwkv_ffn(gen, d, cfg.d_ff, dtype, lead)
     return p
+
+
+def _init_encoder_and_cross(gen: torch.Generator, cfg: ArchConfig, dtype, dev) -> PyTree:
+    """The enc-dec leaves: encoder blocks with a leading layer axis, and the
+    decoder's cross-attention with a leading group axis."""
+    d, e, g = cfg.d_model, (cfg.enc_layers,), (cfg.num_groups,)
+    aspec = _attn_spec(cfg, window=None)
+    encoder = {
+        "blocks": {
+            "attn": L.init_attention(gen, d, aspec, dtype, e),
+            "ffn": L.init_ffn(gen, d, cfg.d_ff, dtype, e),
+            "norm1": _init_norm(cfg, dtype, dev, e),
+            "norm2": _init_norm(cfg, dtype, dev, e),
+        },
+        "final_norm": _init_norm(cfg, dtype, dev),
+    }
+    cross = {
+        f"layer{i}": {"attn": L.init_attention(gen, d, aspec, dtype, g),
+                      "norm": _init_norm(cfg, dtype, dev, g)}
+        for i in range(cfg.period)
+    }
+    return {"encoder": encoder, "cross": cross}
 
 
 def init_params(generator: torch.Generator | int, cfg: ArchConfig, device=None) -> PyTree:
@@ -96,7 +121,6 @@ def init_params(generator: torch.Generator | int, cfg: ArchConfig, device=None) 
     The draws are the port's own: torch cannot give JAX's bits. On the
     ``meta`` device nothing is drawn: the tree holds the shapes and dtypes
     (the ``like`` of a checkpoint restore)."""
-    _check_supported(cfg)
     dev = resolve_device(device)
     gen = generator
     if dev.type == "meta":
@@ -107,13 +131,16 @@ def init_params(generator: torch.Generator | int, cfg: ArchConfig, device=None) 
         raise ValueError(f"generator on {gen.device}, params wanted on {dev}")
     dtype = cfg.dtype()
     scale = cfg.d_model**-0.5
-    return {
+    params = {
         "embed": L._normal(gen, (cfg.vocab_size, cfg.d_model), scale, dtype),
         "blocks": {f"layer{i}": _init_layer(gen, cfg, spec, dtype)
                    for i, spec in enumerate(cfg.pattern)},
         "final_norm": _init_norm(cfg, dtype, dev),
         "lm_head": L._normal(gen, (cfg.d_model, cfg.vocab_size), scale, dtype),
     }
+    if cfg.enc_dec:
+        params.update(_init_encoder_and_cross(gen, cfg, dtype, dev))
+    return params
 
 
 def param_count(params: PyTree) -> int:
@@ -148,28 +175,41 @@ def _apply_layer(
     flash: bool = False,
 ) -> tuple[torch.Tensor, PyTree | None, torch.Tensor]:
     """Pre-norm residual layer. Returns (x, new_cache, moe_aux)."""
-    if spec.mixer != "attn":
-        raise NotImplementedError(f"the {spec.mixer} mixer is {_LATER}")
-    if cross is not None or memory is not None:
-        raise NotImplementedError(f"cross-attention over encoder memory is {_LATER}")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = L.norm(x, p["norm1"], cfg.norm)
-    aspec = _attn_spec(cfg, window=window, flash=flash)
-    y, c = L.attention_layer(
-        p["attn"], h, aspec, positions=positions,
-        cache=None if cache is None else cache["mixer"],
-    )
-    new_cache: PyTree = {"mixer": c}
+    mixer_cache = None if cache is None else cache["mixer"]
+    if spec.mixer == "attn":
+        aspec = _attn_spec(cfg, window=window, flash=flash)
+        y, c = L.attention_layer(p["attn"], h, aspec, positions=positions, cache=mixer_cache)
+    elif spec.mixer == "mamba":
+        y, c = Mb.mamba_block(p["mamba"], h, cfg.mamba, cache=mixer_cache)
+    else:  # rwkv
+        y, c = Rk.rwkv_block(p["rwkv"], h, cfg.rwkv, cache=mixer_cache)
+    new_cache: PyTree = {"mixer": c, "ffn": None}
     x = x + y
+
+    if cross is not None and memory is not None:
+        # Cross-attention over the encoder memory: its K/V projected on
+        # every call, no rope, nothing cached.
+        h = L.norm(x, cross["norm"], cfg.norm)
+        hkv, hd = cfg.num_kv_heads, cfg.hd
+        b, t, _ = memory.shape
+        mk = (memory @ cross["attn"]["wk"]).reshape(b, t, hkv, hd)
+        mv = (memory @ cross["attn"]["wv"]).reshape(b, t, hkv, hd)
+        y, _ = L.attention_layer(cross["attn"], h, _attn_spec(cfg, window=None),
+                                 cross_kv=(mk, mv))
+        x = x + y
 
     h = L.norm(x, p["norm2"], cfg.norm)
     if spec.ffn == "dense":
         y = L.swiglu_ffn(p["ffn"], h) if cfg.ffn_act == "swiglu" else L.gelu_ffn(p["ffn"], h)
-    elif spec.ffn == "none":
-        y = torch.zeros_like(x)
+    elif spec.ffn == "moe":
+        y, aux = Moe.moe_ffn(p["moe"], h, cfg.moe)
+    elif spec.ffn == "rwkv":
+        y, new_cache["ffn"] = Rk.rwkv_ffn(p["ffn"], h,
+                                          cache=None if cache is None else cache["ffn"])
     else:
-        raise NotImplementedError(f"the {spec.ffn} FFN is {_LATER}")
-    new_cache["ffn"] = None
+        y = torch.zeros_like(x)
     return x + y, new_cache, aux
 
 
@@ -209,9 +249,9 @@ def _groups(params: PyTree, cfg: ArchConfig, x: torch.Tensor, *, window, cache, 
     """Run the layer groups in order (the reference's scan), ``cache`` (a
     stacked cache or None) updated in place. ``remat`` checkpoints each group
     (no cache): its activations are recomputed in the backward pass instead
-    of kept, as the reference's ``jax.checkpoint`` of the scan body."""
-    if "cross" in params or memory is not None:
-        raise NotImplementedError(f"encoder memory and cross-attention are {_LATER}")
+    of kept, as the reference's ``jax.checkpoint`` of the scan body.
+    ``memory`` is the encoder's output, attended by the cross-attention
+    stack of an enc-dec model (ignored without one, as in the reference)."""
     if remat and cache is not None:
         raise ValueError("remat is for the training forward (cache=None)")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -219,7 +259,8 @@ def _groups(params: PyTree, cfg: ArchConfig, x: torch.Tensor, *, window, cache, 
         def group(x, g=g):
             y, _, a = _apply_group(
                 _at(params["blocks"], g), x, cfg, window=window, cache=_at(cache, g),
-                cross=None, memory=None, positions=positions, flash=flash,
+                cross=_at(params.get("cross"), g), memory=memory, positions=positions,
+                flash=flash,
             )
             return y, a
 
@@ -254,14 +295,17 @@ def forward(
     remat: bool = False,
     last_only: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """tokens: (B, S) int -> (logits (B, S, V) in the param dtype, moe_aux).
-    ``remat`` checkpoints each layer group (the training memory policy; the
-    result is the same). ``last_only`` gives the last position's logits,
-    (B, V), sliced before the head matmul. No operation here writes into a
+    """tokens: (B, S) int -> (logits (B, S_total, V) in the param dtype,
+    moe_aux). ``prefix_embeds`` (B, P, d): continuous embeddings put ahead
+    of the token embeddings (the VLM's patch stub), so S_total = P + S.
+    ``memory`` (B, T, d): the encoder's output (enc-dec). ``remat``
+    checkpoints each layer group (the training memory policy; the result is
+    the same). ``last_only`` gives the last position's logits, (B, V),
+    sliced before the head matmul. No operation here writes into a
     parameter or into a tensor autograd saved, so it can be differentiated."""
-    if prefix_embeds is not None:
-        raise NotImplementedError(f"VLM prefix embeddings are {_LATER}")
     x = params["embed"][tokens]
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)
     x, aux = _groups(params, cfg, x, window=_window(cfg, window), cache=None,
                      memory=memory, positions=positions, remat=remat)
@@ -272,7 +316,23 @@ def forward(
 
 
 def encode(params: PyTree, cfg: ArchConfig, frames: torch.Tensor) -> torch.Tensor:
-    raise NotImplementedError(f"the encoder of encoder-decoder models is {_LATER}")
+    """Whisper-style encoder over precomputed frame embeddings (B, T, d):
+    non-causal self-attention with rope and a GELU FFN per layer. Its
+    attention is the port's: above 2048^2 logits the chunked loop, which
+    (unlike the reference's) never attends the zero padding past T."""
+    x = frames.to(cfg.dtype())
+    spec = L.AttnSpec(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+                      head_dim=cfg.hd, causal=False, use_rope=True,
+                      rope_theta=cfg.rope_theta)
+    enc = params["encoder"]
+    for i in range(cfg.enc_layers):
+        lp = _at(enc["blocks"], i)
+        h = L.norm(x, lp["norm1"], cfg.norm)
+        y, _ = L.attention_layer(lp["attn"], h, spec)
+        x = x + y
+        h = L.norm(x, lp["norm2"], cfg.norm)
+        x = x + L.gelu_ffn(lp["ffn"], h)
+    return L.norm(x, enc["final_norm"], cfg.norm)
 
 
 # ---------------------------------------------------------------------------
@@ -292,12 +352,13 @@ def init_cache(
 ) -> PyTree:
     """Stacked per-group caches on ``device`` (None: the card): for each
     attention layer a ring buffer of ``cache_len`` positions (sliding-window
-    callers pass the window). ``kv_quant`` stores int8 values and
-    per-(token, head) f32 scales. ``per_slot`` gives every batch row its own
-    position counter (``index`` (G, batch) instead of (G,)), the
-    continuous-batching engine's layout. Every group gets tensors of its own
-    (the reference's ``broadcast_to`` would alias them under in-place writes)."""
-    _check_supported(cfg)
+    callers pass the window); for a Mamba layer its conv and SSM states, for
+    an RWKV layer its token shift and WKV state, and for an RWKV FFN its
+    token shift. ``kv_quant`` stores int8 values and per-(token, head) f32
+    scales. ``per_slot`` gives every batch row its own position counter
+    (``index`` (G, batch) instead of (G,)), the continuous-batching engine's
+    layout. Every group gets tensors of its own (the reference's
+    ``broadcast_to`` would alias them under in-place writes)."""
     dev = resolve_device(device)
     dtype = dtype or cfg.dtype()
     g = cfg.num_groups
@@ -306,7 +367,15 @@ def init_cache(
     def zeros(shape, dt):
         return torch.zeros(shape, dtype=dt, device=dev)
 
-    def one_layer() -> PyTree:
+    def one_layer(spec: LayerSpec) -> PyTree:
+        ffn = ({"shift": zeros((g, batch, cfg.d_model), dtype)} if spec.ffn == "rwkv"
+               else None)
+        if spec.mixer == "mamba":
+            return {"mixer": Mb.init_mamba_cache(batch, cfg.d_model, cfg.mamba, dtype, dev, (g,)),
+                    "ffn": ffn}
+        if spec.mixer == "rwkv":
+            return {"mixer": Rk.init_rwkv_cache(batch, cfg.d_model, cfg.rwkv, dtype, dev, (g,)),
+                    "ffn": ffn}
         index = zeros((g, batch) if per_slot else (g,), torch.int32)
         if kv_quant:
             mixer = {
@@ -318,9 +387,9 @@ def init_cache(
             }
         else:
             mixer = {"k": zeros(kv_shape, dtype), "v": zeros(kv_shape, dtype), "index": index}
-        return {"mixer": mixer, "ffn": None}
+        return {"mixer": mixer, "ffn": ffn}
 
-    return {f"layer{i}": one_layer() for i in range(cfg.period)}
+    return {f"layer{i}": one_layer(spec) for i, spec in enumerate(cfg.pattern)}
 
 
 def _cache_leaves(cache: PyTree, name: str) -> list[torch.Tensor]:
@@ -360,6 +429,13 @@ def prefill_forward(
     index is shared by the batch. Both are checked before anything is
     written. ``flash`` routes every attention layer through the CUDA
     flash-attention kernel (its plain version for CPU tensors).
+
+    Recurrent mixers (mamba, rwkv) run the whole prompt through their
+    chunked scans, so padding is not safe for them: give them exact
+    lengths. MoE FFNs route the prompt in capacity-bounded groups, as
+    ``forward`` does, while token-at-a-time decode routes each step as a
+    group of its own: for MoE patterns the two legitimately differ.
+    ``memory`` is the encoder's output for an enc-dec model.
     """
     if length is not None:
         rings = [k.shape[-3] for k in _cache_leaves(cache, "k")]  # (G, B, T, Hkv, hd)

@@ -617,7 +617,9 @@ class LMCohortTrainer:
     step, and ``restore`` resumes bit-identically. As in the reference,
     ``cfg.opt_dtype`` is not read: the moments are f32. ``mesh`` is the
     engine's, for the mesh backends, which mix in ``run`` only (without one,
-    sparse_sharded runs one shard on the trainer's device).
+    sparse_sharded runs one shard on the trainer's device). An enc-dec
+    member is refused: the cohort's batches are tokens only, with no encoder
+    frames (the reference's cohort stops at ``KeyError: 'frames'``).
     """
 
     def __init__(
@@ -640,6 +642,9 @@ class LMCohortTrainer:
         mesh: mesh_mod.Mesh | None = None,
         device: str | torch.device | None = None,
     ):
+        if cfg.enc_dec:
+            raise ValueError(f"{cfg.arch_id} is an encoder-decoder: an LM cohort's batches "
+                             "carry tokens only, no encoder frames")
         self.cfg = cfg
         self.num_nodes = int(nodes)
         self.batch, self.seq = int(batch), int(seq)

@@ -733,3 +733,99 @@ def test_full_width_adamw_step_keeps_its_dtypes(cuda):
     del t, opt, emb
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# -- slice G: the rest of the model zoo -----------------------------------------
+
+ZOO = ["jamba_v01_52b", "dbrx_132b", "arctic_480b", "rwkv6_3b", "whisper_base", "internvl2_76b"]
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+@pytest.mark.parametrize("arch", ZOO)
+def test_zoo_forward_on_the_card_matches_the_cpu(cuda, arch):
+    """The reduced model (f32, weights drawn on the CPU) on the card and on
+    the CPU: logits at 1e-4, the MoE aux at 1e-5."""
+    from repro_torch.models import frontends
+
+    cfg = cfgbase.get(arch).reduced()
+    params = TF.init_params(0, cfg, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 40)))
+    out = {}
+    for dev in ("cpu", cuda):
+        p = _to(params, dev)
+        kw = {}
+        if cfg.enc_dec:
+            frames = frontends.audio_frames(torch.Generator().manual_seed(2), cfg, 2, 30)
+            kw["memory"] = TF.encode(p, cfg, frames.to(dev))
+        if cfg.family == "vlm":
+            kw["prefix_embeds"] = frontends.patch_embeddings(
+                torch.Generator().manual_seed(3), cfg, 2, 8).to(dev)
+        logits, aux = TF.forward(p, cfg, toks.to(dev), **kw)
+        out[str(dev)] = (logits.cpu(), aux.cpu())
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize(
+    "b,s,h,hkv,hd",
+    [(1, 512, 48, 8, 128), (1, 512, 56, 8, 128), (1, 512, 64, 8, 128), (2, 333, 56, 8, 128)],
+)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_at_the_zoo_gqa_groups(cuda, b, s, h, hkv, hd, dtype):
+    """dbrx's, arctic's and internvl2's prefill heads: head dim 128, GQA
+    groups 6, 7 (odd: its last block of query heads is half empty) and 8."""
+    gen = torch.Generator(device=cuda).manual_seed(s + h)
+    q, k, v = (torch.randn(b, s, n, hd, generator=gen, device=cuda).to(dtype)
+               for n in (h, hkv, hkv))
+    reset_launches()
+    got = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == 1
+    tol = 3e-2 if dtype == torch.bfloat16 else 3e-5
+    torch.testing.assert_close(got.float(), fa.flash_attention_ref(q, k, v).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("arch", ["dbrx_132b", "arctic_480b", "internvl2_76b"])
+def test_zoo_engine_through_the_kernel_matches_the_plain_path(cuda, arch):
+    """The attention-only zoo archs (reduced, f32) through the Engine: the
+    kernel ran once per layer per admission, and its tokens are the plain
+    path's."""
+    cfg = cfgbase.get(arch).reduced()
+    params = TF.init_params(0, cfg, device=cuda)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32) for n in (5, 9, 17, 30)]
+    out = {}
+    for flash in (True, False):
+        eng = Engine(params, cfg, slots=2, cache_len=32, flash=flash)
+        for p in prompts:
+            eng.submit(p, max_new=6)
+        reset_launches()
+        out[flash] = eng.run()
+        if flash:
+            assert LAUNCHES["flash_attention"] == cfg.num_layers * len(prompts)
+    assert all(np.array_equal(out[True][r], out[False][r]) for r in out[False])
+
+
+@pytest.mark.parametrize("arch", ["jamba_v01_52b", "dbrx_132b", "rwkv6_3b", "internvl2_76b"])
+def test_zoo_lm_fused_matches_the_loop_on_the_card(cuda, arch):
+    """Reduced zoo members (CHOCO on: auto) on sparse_pallas: the fused
+    path captures the MoE dispatch and the Mamba / RWKV scans in CUDA
+    graphs, and agrees with the loop at 1e-6; the blocked kernel ran once
+    per leaf per gossip round."""
+    cfg = cfgbase.get(arch).reduced()
+    kw = dict(nodes=4, batch=2, seq=16, lr=1e-3, backend="sparse_pallas", device=cuda)
+    loop = trainer_mod.LMCohortTrainer("ring:n=4", cfg, **kw)
+    fused = trainer_mod.LMCohortTrainer("ring:n=4", cfg, **kw)
+    h1 = loop.run(3, eval_every=3)
+    reset_launches()
+    h2 = fused.run_fused(3, eval_every=3)
+    assert LAUNCHES["sparse_gossip_blocked"] == 3 * len(tree_leaves(fused.params))
+    for a, b in zip(tree_leaves(loop.params), tree_leaves(fused.params)):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+    assert abs(h1[-1]["loss"] - h2[-1]["loss"]) <= 1e-6

@@ -71,9 +71,24 @@ def test_config_aliases_and_the_paper_mlp():
     "arch", ["jamba-v0.1-52b", "dbrx-132b", "arctic-480b", "rwkv6-3b", "whisper-base",
              "internvl2-76b"])
 def test_archs_not_ported_raise_naming_their_slice(arch):
-    jcfg.get(arch)  # the reference serves them
-    with pytest.raises(NotImplementedError, match="slice G"):
-        tcfg.get(arch)
+    """The zoo archs beyond the dense four: each resolves, and mirrors the
+    reference field for field, its MoE / Mamba / RWKV spec dataclass
+    included, in full and reduced."""
+    for cj, ct in ((jcfg.get(arch), tcfg.get(arch)),
+                   (jcfg.get(arch).reduced(), tcfg.get(arch).reduced())):
+        names = [f.name for f in dataclasses.fields(cj)]
+        assert names == [f.name for f in dataclasses.fields(ct)]
+        for name in names:
+            a, b = getattr(cj, name), getattr(ct, name)
+            if name == "pattern":
+                a, b = [(s.mixer, s.ffn) for s in a], [(s.mixer, s.ffn) for s in b]
+            elif name in ("moe", "mamba", "rwkv") and a is not None:
+                assert type(a).__name__ == type(b).__name__, name
+                a, b = dataclasses.asdict(a), dataclasses.asdict(b)
+            assert a == b, name
+        assert (cj.hd, cj.period, cj.num_groups) == (ct.hd, ct.period, ct.num_groups)
+    assert tcfg.get(arch) is tcfg.get(arch.replace("-", "_").replace(".", ""))
+    assert arch.replace("-", "_").replace(".", "") in tcfg.all_arch_ids()
 
 
 # -- norms, rope, FFNs -----------------------------------------------------------

@@ -176,10 +176,32 @@ carries on:
                on pallas (the loop), 4 processes at a time: exit 0, finite
                records, one launch per leaf per gossip round; then each
                arch's loop and fused runs on sparse_pallas in process within
-               1e-6, the fused one's blocked launches counted.
+               1e-6, the fused one's blocked launches counted;
+21. pipeline -- llama3.2-1b at full width and depth (16 layers, d_model
+               2048, 1.498 B parameters, weights from seed 0; no kernel
+               launches) through launch.steps and both pipeline decoders,
+               every mesh position on the card. In f32, batch 8, cache 1024,
+               16 decode steps teacher-forced with the plain step's tokens:
+               build_serve_step with the plain and the int8 cache, the auto
+               variant on (data 4, model 1) and (4, 2) with both caches, the
+               manual variant on (4, 2), (2, 8) and (pod 2, 2, 2); tokens
+               equal the serve step's (int8 for the manual variant) except
+               where its top-2 logit gap is below 1e-4 (rows and smallest gap
+               printed); the auto variant's plain cache within 1e-5 of the
+               serve step's, an int8 cache's first group within one level
+               (scales 1e-5 relative; every group's levels printed), index
+               advanced once a step. build_prefill_step on 4 x 512-token
+               prompts gives generate's first tokens (ms printed). In bf16:
+               decode tokens/s of the serve step and both variants at (4, 2),
+               each alone over 16 steps after a warm-up, with torch.profiler
+               over one step and the share of tokens each shares with the
+               plain step, free-running (printed, not asserted). Then
+               build_train_step: 2 members, AdamW, one microbatch of 4 x 128
+               tokens a member, W all 0.5, lr 3e-5, 4 steps on one batch: the
+               loss falls, peak memory printed.
 
 The card's name and power limit (nvidia-smi) stand beside the numbers of
-phases 17 to 19. A ``[walltime]`` line follows each phase.
+phases 17 to 21. A ``[walltime]`` line follows each phase.
 
 The line before the last is a JSON object with one entry per kernel (its
 launches: those of every path above that runs it, each path's counts set to
@@ -285,6 +307,27 @@ ZOO_LM_ARGS = ("--nodes", "4", "--topology", "ring", "--steps", str(ZOO_LM_STEPS
                "--batch", "2", "--seq", "64")
 # In process, loop against fused over the reference's parity horizon.
 ZOO_LM_ROUNDS = 3
+# Phase 21 (slice G2): llama3.2-1b at full width through the step builders
+# and both pipeline decoders, every mesh position on the one card.
+PIPE_BATCH = 8
+PIPE_CACHE = 1024
+PIPE_STEPS = 16
+PIPE_AUTO_MESHES = ((4, 1), (4, 2))
+PIPE_MANUAL_MESHES = (((4, 2), ("data", "model")), ((2, 8), ("data", "model")),
+                      ((2, 2, 2), ("pod", "data", "model")))
+# A chosen token may differ from the plain step's only where the plain step's
+# top-2 logit gap at that row is below this.
+PIPE_GAP = 1e-4
+PIPE_PREFILL = (4, 512)
+PIPE_TRAIN_STEPS = 4
+# Each member's 4 x 128 tokens a step in one microbatch. With 2 (the grads
+# summed in an f32 accumulator, 12 GB more) the step peaked at 71.942 GiB of
+# the card's 79.179 when phase 21 ran alone, and ran out of memory after
+# phases 1-20 (allocator fragmentation); 2 microbatches are held on the CPU
+# and in test_torch_cuda.py at reduced size.
+PIPE_TRAIN_MICROBATCHES = 1
+PIPE_TRAIN_ROWS = 4
+PIPE_TRAIN_SEQ = 128
 
 
 def phase(name: str, msg: str) -> None:
@@ -712,6 +755,9 @@ def main() -> int:
     laps.lap("19 zoo")
     zoo_lm_launches, zoo_lm_err = zoo_lm_main_path(dev, smi)
     laps.lap("20 zoo_lm")
+    # 21. slice G2: the step builders and the pipeline-parallel decoders
+    pipeline_main_path(dev, smi)
+    laps.lap("21 pipeline")
     path_launches = {**large_n_launches, "gossip_mix": launches["gossip_mix"],
                      "flash_attention": flash_launches + zoo_flash}
     for part in (choco_launches, lm_launches, full_launches, zoo_lm_launches):
@@ -1890,7 +1936,8 @@ def lm_full_round_split(dev, smi: str) -> dict[str, float]:
     max abs errors."""
     from repro_torch.configs import base as cfgbase
     from repro_torch.optim import adamw
-    from repro_torch.train.trainer import LMCohortTrainer, _unflatten
+    from repro_torch.train.trainer import LMCohortTrainer
+    from repro_torch.tree import tree_unflatten
     from repro_torch.tree import tree_leaves
 
     torch.cuda.reset_peak_memory_stats()
@@ -1911,7 +1958,7 @@ def lm_full_round_split(dev, smi: str) -> dict[str, float]:
         e1 = ev()
         leaves = [p.detach().requires_grad_(True) for p in tree_leaves(tr.params)]
         with torch.enable_grad():
-            losses = tr._per_node(_unflatten(tr.params, leaves), toks, labels, tr._loss_fn)
+            losses = tr._per_node(tree_unflatten(tr.params, leaves), toks, labels, tr._loss_fn)
             grads = torch.autograd.grad(losses.sum(), leaves)
         del leaves
         e2 = ev()
@@ -2430,6 +2477,279 @@ def zoo_lm_main_path(dev, smi: str) -> tuple[dict[str, int], dict[str, float]]:
         del loop, fused
         free_card()
     return launches, errs
+
+
+# -- 21. slice G2: step builders and pipeline-parallel decode ------------------
+
+
+def pipe_meshes(dev):
+    """(name, build_pipeline_step kwargs, mesh) of every pipeline variant."""
+    from repro_torch.launch import mesh as LM
+
+    out = [(f"auto {shape}", False, LM.make_host_mesh(shape, device=dev))
+           for shape in PIPE_AUTO_MESHES]
+    out += [(f"manual {dict(zip(axes, shape))}", True, LM.make_host_mesh(shape, axes, device=dev))
+            for shape, axes in PIPE_MANUAL_MESHES]
+    return out
+
+
+def kv_gap(got: dict, want: dict, group=slice(None)) -> tuple[float, float]:
+    """(largest int8 level difference, or abs difference of plain values,
+    and the largest relative scale difference) over k, v and their scales
+    of the groups ``group``."""
+    vals = max(float((got[k][group].float() - want[k][group].float()).abs().max())
+               for k in ("k", "v"))
+    if "k_scale" not in got:
+        return vals, 0.0
+    scales = max(float(((got[k][group] - want[k][group]).abs()
+                        / want[k][group].abs().clamp_min(1e-30)).max())
+                 for k in ("k_scale", "v_scale"))
+    return vals, scales
+
+
+def int8_spread(got: dict, want: dict) -> str:
+    """Per group, the largest level difference of k and v, and the share of
+    entries more than one level apart."""
+    lv = [max(float((got[k][g].float() - want[k][g].float()).abs().max()) for k in ("k", "v"))
+          for g in range(got["k"].shape[0])]
+    far = sum(int(((got[k].float() - want[k].float()).abs() > 1).sum()) for k in ("k", "v"))
+    return (f"levels by group {[int(x) for x in lv]}, entries more than one level apart "
+            f"{far} of {2 * got['k'].numel()}")
+
+
+def pipeline_agreement(params, cfg, dev, smi: str) -> None:
+    """Phase 21, f32: every variant teacher-forced with the plain step's
+    tokens, held to the serve step's tokens and caches."""
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as TF
+    from repro_torch.serve import pipeline as PL
+    from repro_torch.serve import pipeline_manual as PM
+
+    b, t_len = PIPE_BATCH, PIPE_CACHE
+    start = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, b)).to(
+        device=dev, dtype=torch.int32)
+    serve = ST.build_serve_step(cfg)
+    ref = {}
+    for quant in (False, True):
+        cache = TF.init_cache(cfg, b, t_len, kv_quant=quant, device=dev)
+        gap_cache = TF.init_cache(cfg, b, t_len, kv_quant=quant, device=dev)
+        fed, chosen, gaps, tok = [], [], [], start
+        t0 = time.perf_counter()
+        for _ in range(PIPE_STEPS):
+            fed.append(tok)
+            nxt, cache = serve(params, tok, cache)
+            logits, gap_cache = TF.decode_step(params, cfg, tok, gap_cache)
+            top2 = logits.topk(2, dim=-1).values
+            gaps.append(top2[:, 0] - top2[:, 1])
+            if not torch.equal(logits.argmax(-1).to(torch.int32), nxt):
+                fail("build_serve_step's token is not decode_step's argmax")
+            chosen.append(nxt)
+            tok = nxt
+        torch.cuda.synchronize()
+        ref[quant] = (fed, torch.stack(chosen), torch.stack(gaps), cache)
+        del gap_cache
+        phase("pipeline", f"build_serve_step, {'int8' if quant else 'plain'} cache, f32: "
+                          f"{PIPE_STEPS} steps of batch {b} in {time.perf_counter() - t0:.2f} s; "
+                          f"smallest top-2 logit gap {float(ref[quant][2].min()):.3e}")
+
+    def agree(name: str, got: torch.Tensor, quant: bool) -> None:
+        _, want, gaps, _ = ref[quant]
+        diff = got != want
+        n_diff = int(diff.sum())
+        bad = int((diff & (gaps >= PIPE_GAP)).sum())
+        phase("pipeline", f"{name}: {got.numel()} tokens, {n_diff} differ from build_serve_step "
+                          f"({'int8' if quant else 'plain'} cache), {bad} of them at a top-2 gap "
+                          f">= {PIPE_GAP}; smallest gap of all rows {float(gaps.min()):.3e}"
+                          + (f", of the differing rows {float(gaps[diff].min()):.3e}"
+                             if n_diff else ""))
+        if bad:
+            fail(f"{name}: {bad} tokens differ where the plain step's top-2 gap is >= {PIPE_GAP}")
+
+    for name, manual, mesh in pipe_meshes(dev):
+        step = PL.build_pipeline_step(cfg, mesh, manual=manual)
+        for quant in ((True,) if manual else (False, True)):
+            fed = ref[quant][0]
+            if manual:
+                tp = mesh.shape["model"]
+                cache = PM.init_kv_cache(cfg, b, t_len, tp=tp, device=dev)
+            else:
+                cache = TF.init_cache(cfg, b, t_len, kv_quant=quant, device=dev)
+            chosen = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for tok in fed:
+                nxt, cache = step(params, tok, cache)
+                chosen.append(nxt)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            label = f"{name} {'int8' if quant else 'plain'}"
+            agree(label, torch.stack(chosen), quant)
+            mix = ref[quant][3]["layer0"]["mixer"]
+            if manual:
+                heads = PM.kv_heads(cfg, tp)
+                got, want = cache, {k: mix[k][:, :, :, heads] for k in
+                                    ("k", "v", "k_scale", "v_scale")}
+            else:
+                got, want = cache["layer0"]["mixer"], mix
+            index_ok = bool((got["index"] == PIPE_STEPS).all())
+            # The plain cache is held whole. An int8 cache is held on the
+            # first group, whose inputs differ from the serve step's only by
+            # the matmuls' rounding at mb rows: deeper groups read keys that
+            # a rounding-sized change can move a whole level, and that
+            # spreads (printed, not asserted).
+            group = slice(None) if not quant else slice(0, 1)
+            vals, scales = kv_gap(got, want, group)
+            tol = 1.0 if quant else 1e-5
+            phase("pipeline", f"{label}: {PIPE_STEPS} steps in {wall:.2f} s; cache vs the serve "
+                              f"step's: {'int8 levels, group 0' if quant else 'max abs'} "
+                              f"{vals:.3e} (tol {tol:g}), scales rel {scales:.3e} (tol 1e-5), "
+                              f"index advanced once a step {index_ok}"
+                              + (f"; {int8_spread(got, want)}" if quant else "") + f"; {smi}")
+            if not (vals <= tol and scales <= 1e-5 and index_ok):
+                fail(f"{label}: cache {vals} (tol {tol}), scales {scales}, index {index_ok}")
+            del cache
+            free_card()
+
+
+def pipeline_prefill(params, cfg, dev, smi: str) -> None:
+    """Phase 21: build_prefill_step's tokens against generate's first."""
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as TF
+    from repro_torch.serve import decode as SD
+
+    b, s = PIPE_PREFILL
+    prompts = torch.from_numpy(
+        np.random.default_rng(1).integers(0, cfg.vocab_size, (b, s))).to(dev)
+    step = ST.build_prefill_step(cfg)
+    step(params, {"tokens": prompts})  # cold
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first = step(params, {"tokens": prompts})
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    gen = SD.generate(params, cfg, prompts, TF.init_cache(cfg, b, s + 1, device=dev), steps=1)
+    same = torch.equal(first, gen[:, 0])
+    phase("pipeline", f"build_prefill_step, {b} x {s} tokens (f32): {ms:.2f} ms; first tokens "
+                      f"equal generate's {same}; {smi}")
+    if not same:
+        fail(f"build_prefill_step {first.tolist()} vs generate {gen[:, 0].tolist()}")
+
+
+def pipeline_times(params, cfg, dev, smi: str) -> None:
+    """Phase 21, bf16: decode tokens/s of the serve step and both variants
+    at (4, 2), each alone, free-running from the same tokens."""
+    from repro_torch.launch import mesh as LM
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as TF
+    from repro_torch.serve import pipeline as PL
+    from repro_torch.serve import pipeline_manual as PM
+
+    b, t_len = PIPE_BATCH, PIPE_CACHE
+    start = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, b)).to(
+        device=dev, dtype=torch.int32)
+    mesh = LM.make_host_mesh((4, 2), device=dev)
+    runs = {
+        "build_serve_step": (ST.build_serve_step(cfg),
+                             lambda: TF.init_cache(cfg, b, t_len, device=dev)),
+        "auto (4, 2)": (PL.build_pipeline_step(cfg, mesh),
+                        lambda: TF.init_cache(cfg, b, t_len, device=dev)),
+        "manual (4, 2)": (PL.build_pipeline_step(cfg, mesh, manual=True),
+                          lambda: PM.init_kv_cache(cfg, b, t_len, tp=2, device=dev)),
+    }
+    toks = {}
+    for name, (step, make_cache) in runs.items():
+        cache, tok = make_cache(), start
+        for _ in range(2):  # warm-up
+            tok, cache = step(params, tok, cache)
+        cache, tok, out = make_cache(), start, []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(PIPE_STEPS):
+            tok, cache = step(params, tok, cache)
+            out.append(tok)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        toks[name] = torch.stack(out)
+        share = float((toks[name] == toks["build_serve_step"]).float().mean())
+        phase("pipeline", f"{name}, bf16, batch {b}, cache {t_len}: {PIPE_STEPS} steps in "
+                          f"{wall * 1e3:.2f} ms, decode {b * PIPE_STEPS / wall:.1f} tokens/s, "
+                          f"{wall * 1e3 / PIPE_STEPS:.2f} ms a step; tokens shared with the "
+                          f"plain step (free-running) {share:.4f}; {smi}")
+        profile_once(f"{name} decode step, bf16, batch {b}",
+                     lambda step=step, tok=tok, cache=cache: step(params, tok, cache))
+        del cache
+        free_card()
+
+
+def pipeline_train(cfg, dev, smi: str) -> None:
+    """Phase 21: build_train_step at full width, 2 members (bf16 params,
+    AdamW), on one fixed batch: the loss falls."""
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as TF
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_map
+
+    n, mb, seq = 2, PIPE_TRAIN_MICROBATCHES, PIPE_TRAIN_SEQ
+    free_card()
+    member = TF.init_params(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    params = tree_map(lambda x: x.expand(n, *x.shape).contiguous(), member)
+    del member
+    opt = adamw.init(params)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (mb, n, PIPE_TRAIN_ROWS // mb, seq + 1))).to(device=dev,
+                                                                        dtype=torch.int32)
+    batch = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+    w = torch.full((n, n), 0.5, device=dev)
+    step = ST.build_train_step(cfg, num_nodes=n, microbatches=mb, optimizer="adamw",
+                               lr=LM_FULL_LR)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [], []
+    for _ in range(PIPE_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, w, batch)
+        losses.append(float(loss))
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(dev).total_memory
+    falls = all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+    phase("pipeline", f"build_train_step, {n} members x {TF.param_count(params) // n} "
+                      f"{cfg.param_dtype} parameters, AdamW, {mb} microbatch(es) of "
+                      f"{PIPE_TRAIN_ROWS // mb} x {seq} "
+                      f"tokens a member, lr {LM_FULL_LR}: losses "
+                      + ", ".join(f"{x:.5f}" for x in losses)
+                      + f"; step {', '.join(f'{x:.2f}' for x in walls)} s; falls {falls}; peak "
+                        f"{peak / 2**30:.3f} GiB ({peak / 1e9:.2f} GB; {base / 2**30:.3f} GiB "
+                        f"before the first step) of the card's {total / 2**30:.3f} GiB; {smi}")
+    if not falls or peak >= total:
+        fail(f"build_train_step: losses {losses}, peak {peak}")
+    del params, opt
+    free_card()
+
+
+def pipeline_main_path(dev, smi: str) -> None:
+    """Phase 21: llama3.2-1b at full width through the step builders and
+    both pipeline-parallel decoders (plain PyTorch: no kernel launches)."""
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.models import transformer as TF
+    from repro_torch.tree import tree_map
+
+    cfg = cfgbase.get("llama3.2-1b")
+    free_card()
+    params = TF.init_params(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+    params32 = tree_map(lambda t: t.float(), params)
+    phase("pipeline", f"{cfg.arch_id}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+                      f"{cfg.num_heads}/{cfg.num_kv_heads} heads, vocab {cfg.vocab_size}: "
+                      f"{TF.param_count(params)} parameters (seed 0), f32 copy for agreement")
+    pipeline_agreement(params32, cfg32, dev, smi)
+    pipeline_prefill(params32, cfg32, dev, smi)
+    del params32
+    free_card()
+    pipeline_times(params, cfg, dev, smi)
+    del params
+    pipeline_train(cfg, dev, smi)
 
 
 def route_cli(smi: str) -> None:

@@ -57,7 +57,7 @@ from repro_torch.core import mixing, sparse
 from repro_torch.core import topology as topo
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 __all__ = [
     "GossipEngine",
@@ -113,11 +113,6 @@ def _slabs(flat: torch.Tensor, devices: list[torch.device]) -> list[torch.Tensor
     shard's device (a view when it is already there)."""
     blk = flat.shape[0] // len(devices)
     return [flat[s * blk:(s + 1) * blk].to(d) for s, d in enumerate(devices)]
-
-
-def _unflatten(tree: PyTree, leaves: list[torch.Tensor]) -> PyTree:
-    it = iter(leaves)
-    return tree_map(lambda _: next(it), tree)
 
 
 def mix_sharded(
@@ -182,7 +177,7 @@ def _mix_leaves_concatenated(params: PyTree, n: int, mix_cat, *more: PyTree) -> 
 
     out = mix_cat(cat(leaves), *(cat(tree_leaves(t)) for t in more))
     outs = out.split([leaf[0].numel() for leaf in leaves], dim=1)
-    return _unflatten(params, [o.reshape(l.shape).to(l.dtype) for o, l in zip(outs, leaves)])
+    return tree_unflatten(params, [o.reshape(l.shape).to(l.dtype) for o, l in zip(outs, leaves)])
 
 
 def _resolve_halo(layout: sparse.ShardedELL, halo_schedule: str) -> bool:

@@ -3,7 +3,8 @@
 The reference runs ``sharded``, ``sparse_sharded`` and ``permute`` under
 ``shard_map`` over a ``jax.sharding.Mesh``, with four ``jax.lax``
 collectives (``all_gather``, ``psum_scatter``, ``ppermute``,
-``axis_index``). No module of the reference corresponds to this one: it is
+``axis_index``); the pipeline decoders add ``psum`` over one axis and a
+tiled ``all_gather`` of a feature axis. No module of the reference corresponds to this one: it is
 the port's stand-in for that mesh and those collectives, and it is not the
 counterpart of ``repro/launch/mesh.py`` (production meshes, a later slice).
 
@@ -33,6 +34,7 @@ __all__ = [
     "axis_size",
     "axis_index",
     "all_gather",
+    "psum",
     "psum_scatter",
     "ppermute",
     "same_device",
@@ -135,9 +137,21 @@ def axis_index(mesh, node_axis, position: dict[str, int]) -> int:
     return idx
 
 
-def all_gather(slabs: list[torch.Tensor], device: torch.device) -> torch.Tensor:
-    """The full node axis on ``device``: every shard's slab, in shard order."""
-    return torch.cat([s.to(device) for s in slabs])
+def all_gather(slabs: list[torch.Tensor], device: torch.device, *, axis: int = 0) -> torch.Tensor:
+    """Every shard's slab on ``device``, concatenated in shard order along
+    tensor axis ``axis``: the full node axis by default, a feature axis for
+    ``jax.lax.all_gather(..., axis=axis, tiled=True)``."""
+    return torch.cat([s.to(device) for s in slabs], dim=axis)
+
+
+def psum(parts: list[torch.Tensor], devices: list[torch.device]) -> list[torch.Tensor]:
+    """``jax.lax.psum`` over one mesh axis: the sum of the shards' ``parts``,
+    added in shard order, given to each shard on ``devices[i]``. Shards on
+    one device share the one result tensor."""
+    acc = parts[0].to(devices[0])
+    for p in parts[1:]:
+        acc = acc + p.to(devices[0])
+    return [acc.to(d) for d in devices]
 
 
 def psum_scatter(parts: list[torch.Tensor], devices: list[torch.device]) -> list[torch.Tensor]:

@@ -1,14 +1,16 @@
 """SGD with momentum (the paper's optimizer) over node-stacked parameter
 trees: ``m = mu * m + g``, then ``p = p - lr * m`` in the momentum dtype.
 
-Unlike the reference's pure functions, ``update_`` writes momentum and
-parameters in place: at paper size each is 227 MB of node-stacked f32, and
-copying them every local step buys nothing.
+``init`` and ``update`` are the reference's pure functions over an
+``SGDState`` (``launch.steps.build_train_step`` uses them). The trainers use
+``update_``, which writes momentum and parameters in place: at paper size
+each is 227 MB of node-stacked f32, and copying them every local step buys
+nothing.
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, NamedTuple
 
 import torch
 
@@ -16,12 +18,46 @@ from repro_torch.tree import tree_leaves, tree_map
 
 PyTree = Any
 
-__all__ = ["init", "update_"]
+__all__ = ["SGDState", "init", "update", "update_"]
 
 
-def init(params: PyTree) -> PyTree:
-    """Zero f32 momentum, shaped like ``params``."""
-    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
+class SGDState(NamedTuple):
+    momentum: PyTree
+
+
+def init(params: PyTree, *, dtype: torch.dtype | None = None) -> SGDState:
+    """Zero momentum shaped like ``params``, in ``dtype`` (default f32)."""
+    return SGDState(tree_map(
+        lambda p: torch.zeros(p.shape, dtype=dtype or torch.float32, device=p.device), params))
+
+
+@torch.no_grad()
+def update(
+    grads: PyTree,
+    state: SGDState,
+    params: PyTree,
+    *,
+    lr: float | torch.Tensor,
+    mu: float = 0.5,
+    weight_decay: float = 0.0,
+) -> tuple[PyTree, SGDState]:
+    """One step as new trees: ``m = mu * m + g (+ wd * p)``, then
+    ``p - lr * m`` in the momentum dtype, stored in the params' dtype (the
+    reference's expression order)."""
+
+    def new_m(g, m, p):
+        gf = g.to(m.dtype)
+        if weight_decay:
+            gf = gf + weight_decay * p.to(m.dtype)
+        return mu * m + gf
+
+    new_mom = tree_map(new_m, grads, state.momentum, params)
+
+    def step(p, m):
+        lr_t = torch.as_tensor(lr, dtype=m.dtype, device=m.device)
+        return (p.to(m.dtype) - lr_t * m).to(p.dtype)
+
+    return tree_map(step, params, new_mom), SGDState(new_mom)
 
 
 @torch.no_grad()

@@ -74,7 +74,7 @@ from repro_torch.train.metrics import (
     consensus_distance,
     group_accuracy,
 )
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 PyTree = Any
 
@@ -209,7 +209,7 @@ class DecentralizedTrainer:
                 nodes = [init_fn(gen) for _ in range(self.num_nodes)]
                 params = tree_map(lambda *xs: torch.stack(xs), *nodes)
         self.params = tree_map(lambda x: x.to(self.device).contiguous().clone(), params)
-        self.momentum = sgd.init(self.params)
+        self.momentum = sgd.init(self.params).momentum
         self.cstate = None if self.compress is None else compress_mod.init(self.params)
         self._has_hist = self.faulted and self.engine.fault_trace.delay_max > 0
 
@@ -235,7 +235,7 @@ class DecentralizedTrainer:
         ``momentum``."""
         leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
         with torch.enable_grad():
-            tracked = _unflatten(params, leaves)
+            tracked = tree_unflatten(params, leaves)
             loss = softmax_xent(self._forward(tracked, x), y).sum()
             grads = torch.autograd.grad(loss, leaves)
         sgd.update_(list(grads), tree_leaves(momentum), tree_leaves(params),
@@ -443,12 +443,6 @@ class DecentralizedTrainer:
         y_t = torch.as_tensor(np.asarray(y_test), dtype=torch.int64, device=self.device)
         _, _, logits = self._eval(x_t, y_t)
         return confusion_matrix(logits, y_t, self.num_classes).cpu().numpy()
-
-
-def _unflatten(tree: PyTree, leaves: list[torch.Tensor]) -> PyTree:
-    """``tree``'s structure with ``leaves`` (in ``tree_leaves`` order)."""
-    it = iter(leaves)
-    return tree_map(lambda _: next(it), tree)
 
 
 class _FusedRounds:
@@ -673,7 +667,7 @@ class LMCohortTrainer:
         self.params = tree_map(lambda x: x.expand(n, *x.shape).contiguous(), per_node)
         del per_node
         self.use_adamw = cfg.optimizer == "adamw"
-        self.opt_state = adamw.init(self.params) if self.use_adamw else sgd.init(self.params)
+        self.opt_state = adamw.init(self.params) if self.use_adamw else sgd.init(self.params).momentum
         self.cstate = None if self.compress is None else compress_mod.init(self.params)
         self.start_round = 0  # advanced by restore()
         self._loss_fn = ST.node_loss_fn(cfg)
@@ -722,7 +716,7 @@ class LMCohortTrainer:
         """One optimizer step on every node; returns the mean loss (0-dim)."""
         leaves = [p.detach().requires_grad_(True) for p in tree_leaves(self.params)]
         with torch.enable_grad():
-            losses = self._per_node(_unflatten(self.params, leaves), toks, labels,
+            losses = self._per_node(tree_unflatten(self.params, leaves), toks, labels,
                                     self._loss_fn)
             grads = torch.autograd.grad(losses.sum(), leaves)
         del leaves

@@ -7,7 +7,7 @@ from typing import Any, Callable
 
 import torch
 
-__all__ = ["tree_map", "tree_leaves"]
+__all__ = ["tree_map", "tree_map_with_path", "tree_leaves", "tree_unflatten"]
 
 
 def tree_map(fn: Callable[..., torch.Tensor], tree: Any, *rest: Any) -> Any:
@@ -19,6 +19,22 @@ def tree_map(fn: Callable[..., torch.Tensor], tree: Any, *rest: Any) -> Any:
     return fn(tree, *rest)
 
 
+def tree_map_with_path(fn: Callable[..., Any], tree: Any, *rest: Any,
+                       _path: tuple = ()) -> Any:
+    """``fn(path, leaf, *rest_leaves)`` leaf-wise, ``path`` the tuple of dict
+    keys and list indices from the root (the reference's key path). ``None``
+    is an empty subtree, as in ``jax.tree``, and stays ``None``."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, tree[k], *(r[k] for r in rest), _path=_path + (k,))
+                for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map_with_path(fn, t, *(r[i] for r in rest), _path=_path + (i,))
+                for i, t in enumerate(tree)]
+    return fn(_path, tree, *rest)
+
+
 def tree_leaves(tree: Any) -> list[torch.Tensor]:
     """The leaves of ``tree`` in order."""
     if isinstance(tree, dict):
@@ -26,3 +42,9 @@ def tree_leaves(tree: Any) -> list[torch.Tensor]:
     if isinstance(tree, (list, tuple)):
         return [leaf for t in tree for leaf in tree_leaves(t)]
     return [tree]
+
+
+def tree_unflatten(tree: Any, leaves: list[torch.Tensor]) -> Any:
+    """``tree``'s structure with ``leaves`` (in ``tree_leaves`` order)."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)

@@ -829,3 +829,88 @@ def test_zoo_lm_fused_matches_the_loop_on_the_card(cuda, arch):
     for a, b in zip(tree_leaves(loop.params), tree_leaves(fused.params)):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
     assert abs(h1[-1]["loss"] - h2[-1]["loss"]) <= 1e-6
+
+
+# -- slice G2: step builders and pipeline-parallel decode ---------------------------
+
+
+def _pipe_cfg():
+    import dataclasses
+
+    return dataclasses.replace(cfgbase.get("llama3.2-1b").reduced(), num_layers=4, num_heads=4,
+                               num_kv_heads=2, head_dim=32, d_model=128, d_ff=256,
+                               vocab_size=512)
+
+
+@pytest.mark.parametrize("variant", ["auto_2x2", "auto_4x1", "manual_2x2", "manual_pod2x2x2",
+                                     "manual_1x4"])
+def test_pipeline_decode_on_the_card_matches_the_serve_step(cuda, variant):
+    """Both pipeline variants (reduced llama, f32, every mesh position on the
+    card) choose build_serve_step's tokens over 6 steps, teacher-forced; the
+    auto variant's cache within 1e-5 of the serve step's, the manual one's
+    within one int8 level of the int8 serve step's."""
+    from repro_torch.launch import mesh as LM
+    from repro_torch.launch import steps as ST
+    from repro_torch.serve import pipeline as PL
+    from repro_torch.serve import pipeline_manual as PM
+
+    cfg = _pipe_cfg()
+    params = TF.init_params(0, cfg, device=cuda)
+    kind, shape = variant.split("_")
+    axes = ("pod", "data", "model") if shape.startswith("pod") else ("data", "model")
+    shape = tuple(int(x) for x in shape.removeprefix("pod").split("x"))
+    mesh_ = LM.make_host_mesh(shape, axes, device=cuda)
+    manual = kind == "manual"
+    b, t_len = 4, 16
+    serve = ST.build_serve_step(cfg)
+    want = TF.init_cache(cfg, b, t_len, kv_quant=manual, device=cuda)
+    step = PL.build_pipeline_step(cfg, mesh_, manual=manual)
+    tp = mesh_.shape["model"]
+    got = (PM.init_kv_cache(cfg, b, t_len, tp=tp, device=cuda) if manual
+           else TF.init_cache(cfg, b, t_len, device=cuda))
+    tok = torch.arange(1, b + 1, dtype=torch.int32, device=cuda)
+    for _ in range(6):
+        ref, want = serve(params, tok, want)
+        out, got = step(params, tok, got)
+        assert torch.equal(out, ref)
+        tok = ref
+    mix = want["layer0"]["mixer"]
+    if manual:
+        heads = PM.kv_heads(cfg, tp)
+        for k in ("k", "v"):
+            assert int((got[k].int() - mix[k][:, :, :, heads].int()).abs().max()) <= 1
+        torch.testing.assert_close(got["k_scale"], mix["k_scale"][:, :, :, heads],
+                                   rtol=1e-5, atol=0)
+        assert bool((got["index"] == 6).all())
+    else:
+        for k in ("k", "v"):
+            torch.testing.assert_close(got["layer0"]["mixer"][k], mix[k], rtol=0, atol=1e-5)
+        assert bool((got["layer0"]["mixer"]["index"] == 6).all())
+
+
+def test_train_and_prefill_steps_on_the_card(cuda):
+    """build_train_step (reduced llama, 2 members, AdamW, 2 microbatches)
+    lowers the loss on one batch; build_prefill_step's tokens are
+    generate's first."""
+    from repro_torch.launch import steps as ST
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_map
+
+    cfg = cfgbase.get("llama3.2-1b").reduced()
+    member = TF.init_params(0, cfg, device=cuda)
+    params = tree_map(lambda x: torch.stack([x] * 2), member)
+    opt = adamw.init(params)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (2, 2, 2, 33), generator=gen, device=cuda)
+    batch = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+    step = ST.build_train_step(cfg, num_nodes=2, microbatches=2, lr=1e-3)
+    w = torch.full((2, 2), 0.5, device=cuda)
+    losses = []
+    for _ in range(4):
+        params, opt, loss = step(params, opt, w, batch)
+        losses.append(float(loss))
+    assert losses[-1] < losses[0]
+    prompts = torch.randint(0, cfg.vocab_size, (3, 20), generator=gen, device=cuda)
+    first = ST.build_prefill_step(cfg)(member, {"tokens": prompts})
+    want = SD.generate(member, cfg, prompts, TF.init_cache(cfg, 3, 21, device=cuda), steps=1)
+    assert torch.equal(first, want[:, 0])

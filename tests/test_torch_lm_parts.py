@@ -25,8 +25,7 @@ from repro_torch.launch import steps
 from repro_torch.models import transformer as TF
 from repro_torch.optim import adamw, schedules
 from repro_torch.train import losses
-from repro_torch.train.trainer import _unflatten
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_unflatten
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -205,7 +204,7 @@ def test_forward_with_and_without_remat_and_against_the_reference(model):
 
     def grads(remat):
         leaves = [x.detach().requires_grad_(True) for x in tree_leaves(params)]
-        logits, _ = TF.forward(_unflatten(params, leaves), cfg, t, remat=remat)
+        logits, _ = TF.forward(tree_unflatten(params, leaves), cfg, t, remat=remat)
         return torch.autograd.grad(losses.lm_loss(logits, torch.from_numpy(labels)), leaves)
 
     for a, b in zip(grads(False), grads(True), strict=True):
@@ -218,7 +217,7 @@ def test_node_loss_fn_matches_the_reference(model):
     ref_loss, ref_grads = jax.value_and_grad(ref_steps.node_loss_fn(ref_cfg))(
         ref_p, jax.tree.map(jnp.asarray, batch))
     leaves = [x.detach().requires_grad_(True) for x in tree_leaves(params)]
-    loss = steps.node_loss_fn(cfg)(_unflatten(params, leaves),
+    loss = steps.node_loss_fn(cfg)(tree_unflatten(params, leaves),
                                    {k: torch.from_numpy(v) for k, v in batch.items()})
     grads = torch.autograd.grad(loss, leaves)
     assert abs(float(loss.detach()) - float(ref_loss)) <= 1e-5

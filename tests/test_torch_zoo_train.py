@@ -25,8 +25,8 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.launch import steps as tsteps
 from repro_torch.launch import train as train_cli
 from repro_torch.optim import adamw, sgd
-from repro_torch.train.trainer import LMCohortTrainer, _unflatten
-from repro_torch.tree import tree_leaves
+from repro_torch.train.trainer import LMCohortTrainer
+from repro_torch.tree import tree_leaves, tree_unflatten
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -73,7 +73,7 @@ def test_node_loss_and_grads_match(arch):
     loss_j, grads_j = jax.value_and_grad(jsteps.node_loss_fn(cj))(
         pj, {k: jnp.asarray(v) for k, v in batch.items()})
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(pt)]
-    loss_t = tsteps.node_loss_fn(ct)(_unflatten(pt, leaves),
+    loss_t = tsteps.node_loss_fn(ct)(tree_unflatten(pt, leaves),
                                      {k: torch.from_numpy(v) for k, v in batch.items()})
     grads_t = torch.autograd.grad(loss_t, leaves, allow_unused=True, materialize_grads=True)
     assert float(loss_t.detach()) == pytest.approx(float(loss_j), rel=0, abs=1e-5)

@@ -83,7 +83,8 @@ def profile_forward_backward(dev, smi: str) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import base as cfgbase
-    from repro_torch.train.trainer import LMCohortTrainer, _unflatten
+    from repro_torch.train.trainer import LMCohortTrainer
+    from repro_torch.tree import tree_unflatten
     from repro_torch.tree import tree_leaves
 
     tr = LMCohortTrainer("ring", cfgbase.get("llama3.2-1b"), nodes=2, backend="pallas",
@@ -93,7 +94,7 @@ def profile_forward_backward(dev, smi: str) -> None:
     def fwd_bwd():
         leaves = [p.detach().requires_grad_(True) for p in tree_leaves(tr.params)]
         with torch.enable_grad():
-            losses = tr._per_node(_unflatten(tr.params, leaves), toks, labels, tr._loss_fn)
+            losses = tr._per_node(tree_unflatten(tr.params, leaves), toks, labels, tr._loss_fn)
             return torch.autograd.grad(losses.sum(), leaves)
 
     fwd_bwd()  # the first call pays lazy initialisation

@@ -198,10 +198,31 @@ carries on:
                plain step, free-running (printed, not asserted). Then
                build_train_step: 2 members, AdamW, one microbatch of 4 x 128
                tokens a member, W all 0.5, lr 3e-5, 4 steps on one batch: the
-               loss falls, peak memory printed.
+               loss falls, peak memory printed;
+22. dryrun   -- the production dry-run (launch.dryrun.run_one, traced on the
+               ``meta`` device, no kernel): every arch at decode_32k and
+               long_500k on both production meshes, and llama3.2-1b's
+               train_4k and prefill_32k on (16, 16), each row ok, dominant
+               term and per-device argument GB printed; then the dry-run held
+               to the card on a (1, 1) mesh, llama3.2-1b at full width: the
+               decode step (batch 8, cache 1024) and the prefill step (4 x
+               512) built on ``meta`` and on the card, where the rise in
+               allocated memory must be the dry-run's argument bytes within
+               512 bytes a leaf (expandable segments on, so every block is
+               its request rounded up to 512) and the real step's outputs
+               must have the dry-run's shapes and dtypes (peak printed beside
+               the argument bytes); the train step's arguments (2 members,
+               AdamW) the same way, without running the step;
+23. paper    -- the paper preset through run_sweep on the card (21 runs of
+               40 rounds at N=100, dense): every run finishes on the card,
+               and hub_beats_edge, hub_beats_edge_by_family and
+               gossip_learns_g2 equal the reference's own sweep of the
+               preset; rounds/s printed. Then the three examples
+               (examples/torch_*.py) at their smallest sizes, at once, on the
+               card: exit 0.
 
 The card's name and power limit (nvidia-smi) stand beside the numbers of
-phases 17 to 21. A ``[walltime]`` line follows each phase.
+phases 17 to 23. A ``[walltime]`` line follows each phase.
 
 The line before the last is a JSON object with one entry per kernel (its
 launches: those of every path above that runs it, each path's counts set to
@@ -328,6 +349,30 @@ PIPE_TRAIN_STEPS = 4
 PIPE_TRAIN_MICROBATCHES = 1
 PIPE_TRAIN_ROWS = 4
 PIPE_TRAIN_SEQ = 128
+# Phase 22 (slice H): the dry-run's rows, traced on ``meta`` (the host), for
+# every arch at these shapes on both production meshes and llama3.2-1b's
+# train and prefill rows on (16, 16); then its argument bytes and outputs
+# held to the card at phase 21's sizes (decode batch 8, cache 1024; prefill
+# 4 x 512; train 2 members, AdamW, 4 x 128 tokens a member). The caching
+# allocator rounds every block up to a multiple of 512 bytes.
+DRY_SHAPES = ("decode_32k", "long_500k")
+DRY_LLAMA_ROWS = ("train_4k", "prefill_32k")
+DRY_PREFILL = (4, 512)
+DRY_ALLOC_SLACK = 512
+# Phase 23: the qualitative checks of the reference's own paper sweep, run
+# on the CPU with `python -m repro.experiments.sweep --preset paper
+# --processes 8` on commit 2164295 (21 runs, 40 rounds, dense).
+PAPER_REF_CHECKS = {"hub_beats_edge": True, "hub_beats_edge_by_family": {"ba": True, "er": True},
+                    "gossip_learns_g2": True}
+# The port's examples at their smallest sizes, on the card (script,
+# arguments, a line the output must hold).
+EXAMPLE_RUNS = (
+    ("torch_quickstart.py", ("--nodes", "10", "--rounds", "2", "--train-per-class", "60",
+                             "--test-per-class", "10"), "mean recall on never-seen classes"),
+    ("torch_serve_decode.py", ("--gen", "4"), "through a 16-slot ring cache"),
+    ("torch_decentralized_llm.py", ("--steps", "3", "--seq", "16", "--batch", "2"),
+     "consensus distance across nodes"),
+)
 
 
 def phase(name: str, msg: str) -> None:
@@ -758,6 +803,14 @@ def main() -> int:
     # 21. slice G2: the step builders and the pipeline-parallel decoders
     pipeline_main_path(dev, smi)
     laps.lap("21 pipeline")
+    # 22. slice H: the dry-run on meta, held to the card
+    dryrun_rows()
+    dryrun_card_check(dev, smi)
+    laps.lap("22 dryrun")
+    # 23. the paper preset on the card (owed since slice A), and the examples
+    paper_sweep(kind, smi)
+    examples_on_card(smi)
+    laps.lap("23 paper, examples")
     path_launches = {**large_n_launches, "gossip_mix": launches["gossip_mix"],
                      "flash_attention": flash_launches + zoo_flash}
     for part in (choco_launches, lm_launches, full_launches, zoo_lm_launches):
@@ -2750,6 +2803,186 @@ def pipeline_main_path(dev, smi: str) -> None:
     pipeline_times(params, cfg, dev, smi)
     del params
     pipeline_train(cfg, dev, smi)
+
+
+def dryrun_rows() -> None:
+    """Phase 22: run_one for every arch x DRY_SHAPES x both production meshes
+    and llama3.2-1b's DRY_LLAMA_ROWS on (16, 16), traced on ``meta``."""
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.launch import dryrun as DR
+
+    combos = [(a, s, mp) for a in cfgbase.ASSIGNED_ARCHS for s in DRY_SHAPES for mp in (False, True)]
+    combos += [("llama3.2-1b", s, False) for s in DRY_LLAMA_ROWS]
+    gbs = []
+    t0 = time.perf_counter()
+    for arch, shape_name, mp in combos:
+        row = DR.run_one(arch, shape_name, multi_pod=mp)
+        if row["status"] != "ok":
+            fail(f"dry-run {arch} x {shape_name}: {row['status']}")
+        gbs.append(row["per_device_hbm_gb"])
+        phase("dryrun", f"{row['arch']} x {shape_name} x {row['mesh']}: dominant {row['dominant']} "
+                        f"(compute {row['compute_s']:.3e} s, memory {row['memory_s']:.3e} s, "
+                        f"collective {row['collective_s']:.3e} s), per-device arguments "
+                        f"{row['per_device_hbm_gb']:.6f} GB, trace {row['lower_s']} s of "
+                        f"{row['traced_layers']} layer(s)")
+    phase("dryrun", f"{len(combos)} rows ok in {time.perf_counter() - t0:.2f} s on the host "
+                    f"(meta device); per-device argument GB {min(gbs):.6f}..{max(gbs):.6f}")
+
+
+def leaf_list(tree) -> list[tuple[tuple[int, ...], torch.dtype]]:
+    from repro_torch.launch.dryrun import flat_leaves
+
+    return [(tuple(x.shape), x.dtype) for _p, x in flat_leaves(tree)]
+
+
+def dryrun_card_case(name: str, cfg, shape, make, step, smi: str, **kw) -> None:
+    """Phase 22: the dry-run of one step on a (1, 1) mesh against the card:
+    ``make()`` builds the same arguments there, the rise in allocated
+    memory must be the dry-run's argument bytes (DRY_ALLOC_SLACK a leaf);
+    ``step``, where given, runs on them and its outputs must have the
+    dry-run's shapes and dtypes (the trace at full depth)."""
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import mesh as LM
+
+    meta_mesh = LM.make_host_mesh((1, 1), device="meta")
+    tr = DR.trace(cfg, meta_mesh, shape, full_depth=step is not None, **kw)
+    meta_args = DR.build(cfg, meta_mesh, shape, **kw)[1]
+    free_card()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    req0 = torch.cuda.memory_stats().get("requested_bytes.all.current", 0)
+    args = make(meta_args)
+    torch.cuda.synchronize()
+    rise = torch.cuda.memory_allocated() - base
+    requested = torch.cuda.memory_stats().get("requested_bytes.all.current", 0) - req0
+    n_leaves = len(leaf_list(meta_args))
+    same_args = leaf_list(args) == leaf_list(meta_args)
+    ok_bytes = abs(rise - tr.arg_bytes) <= DRY_ALLOC_SLACK * n_leaves
+    line = (f"{name}: dry-run argument bytes {tr.arg_bytes}, allocated on the card {rise} "
+            f"(requested {requested}; {n_leaves} leaves, tol {DRY_ALLOC_SLACK} a leaf): "
+            f"{ok_bytes}; arguments' shapes and dtypes as the dry-run's {same_args}")
+    if step is not None:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = step(*args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        same_out = leaf_list(out) == leaf_list(tr.outputs)
+        line += (f"; step {wall * 1e3:.2f} ms, outputs ({len(leaf_list(out))} leaves) as the "
+                 f"dry-run's {same_out}; step peak {peak} bytes ({peak / 2**30:.3f} GiB) beside "
+                 f"{tr.arg_bytes} argument bytes ({tr.arg_bytes / 2**30:.3f} GiB)")
+        if not same_out:
+            fail(f"{name}: outputs {leaf_list(out)[:4]} vs dry-run {leaf_list(tr.outputs)[:4]}")
+        del out
+    phase("dryrun", line + f"; {smi}")
+    if not (ok_bytes and same_args):
+        fail(f"{name}: card {rise} bytes vs dry-run {tr.arg_bytes}, arguments match {same_args}")
+    del args
+    free_card()
+
+
+def dryrun_card_check(dev, smi: str) -> None:
+    """Phase 22: llama3.2-1b at full width, the dry-run held to the card."""
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.launch import shapes as SH
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as TF
+    from repro_torch.tree import tree_map
+
+    cfg = cfgbase.get("llama3.2-1b")
+    rng = np.random.default_rng(3)
+
+    def params():
+        return TF.init_params(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+
+    def ints(shape):
+        return torch.from_numpy(rng.integers(0, cfg.vocab_size, shape)).to(device=dev,
+                                                                             dtype=torch.int32)
+
+    # Every block a multiple of 512 bytes: no block keeps an unsplit tail of
+    # its segment, which the large pool's default would count as allocated.
+    settings = (getattr(torch._C, "_accelerator_setAllocatorSettings", None)
+                or torch.cuda.memory._set_allocator_settings)
+    settings("expandable_segments:True")
+    try:
+        dryrun_card_case(
+            f"decode, batch {PIPE_BATCH}, cache {PIPE_CACHE}", cfg,
+            SH.InputShape("decode_card", PIPE_CACHE, PIPE_BATCH, "decode"),
+            lambda _m: (params(), ints(PIPE_BATCH),
+                        TF.init_cache(cfg, PIPE_BATCH, PIPE_CACHE, device=dev)),
+            ST.build_serve_step(cfg), smi)
+        b, s = DRY_PREFILL
+        dryrun_card_case(
+            f"prefill, {b} x {s}", cfg, SH.InputShape("prefill_card", s, b, "prefill"),
+            lambda _m: (params(), {"tokens": ints((b, s))}), ST.build_prefill_step(cfg), smi)
+        n = 2
+        dryrun_card_case(
+            f"train, {n} members, AdamW, {PIPE_TRAIN_ROWS} x {PIPE_TRAIN_SEQ} tokens a member "
+            "(arguments only)", cfg,
+            SH.InputShape("train_card", PIPE_TRAIN_SEQ, n * PIPE_TRAIN_ROWS, "train"),
+            lambda m: tree_map(lambda x: torch.zeros(x.shape, dtype=x.dtype, device=dev), m),
+            None, smi, num_nodes=n, microbatches=1)
+    finally:
+        settings("expandable_segments:False")
+
+
+def paper_sweep(kind: str, smi: str) -> None:
+    """Phase 23: the paper preset through run_sweep on the card, its
+    qualitative checks held to the reference's."""
+    from repro_torch.experiments import analysis, presets, runner
+    from repro_torch.experiments.store import ResultsStore
+
+    specs = presets.get_preset("paper")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "paper.jsonl")
+        t0 = time.perf_counter()
+        summary = runner.run_sweep(specs, path)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        store = ResultsStore(path)
+        finals = store.finals()
+        if summary["failed"] or len(finals) != len(specs):
+            fail(f"paper sweep: failed {summary['failed']}, {len(finals)} of {len(specs)} finished")
+        devices = {end["final"]["device"] for end in finals.values()}
+        if devices != {kind}:
+            fail(f"paper sweep ran on {devices}")
+        checks = analysis.qualitative_checks(analysis.summarize(store))
+    got = {k: checks.get(k) for k in PAPER_REF_CHECKS}
+    rounds = sum(sp.rounds for sp in specs)
+    phase("paper", f"paper preset: {len(specs)} runs, {rounds} rounds (N=100, dense) in "
+                   f"{wall:.2f} s, {rounds / wall:.3f} rounds/s (data and set-up included); "
+                   f"checks {json.dumps(got)}; the reference's (commit 2164295, CPU) "
+                   f"{json.dumps(PAPER_REF_CHECKS)}; {smi}")
+    if got != PAPER_REF_CHECKS:
+        fail(f"paper checks {got} differ from the reference's {PAPER_REF_CHECKS}")
+
+
+def examples_on_card(smi: str) -> None:
+    """Phase 23: the port's examples at their smallest sizes on the card,
+    all three at once."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    t0 = time.perf_counter()
+    procs = [(script, marker, subprocess.Popen(
+        [sys.executable, str(ROOT / "examples" / script), *args], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for script, args, marker in EXAMPLE_RUNS]
+    results = []
+    try:
+        for script, marker, p in procs:
+            out, err = p.communicate(timeout=600)
+            results.append((script, marker, p.returncode, out, err))
+    finally:
+        for _s, _m, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for script, marker, rc, out, err in results:
+        lines = out.strip().splitlines()
+        phase("examples", f"{script}: exit {rc}; {lines[-1] if lines else ''}")
+        if rc != 0 or marker not in out or "cuda" not in out:
+            fail(f"{script} exited {rc}:\n{out[-1500:]}\n{err[-1500:]}")
+    phase("examples", f"3 examples on the card in {time.perf_counter() - t0:.2f} s; {smi}")
 
 
 def route_cli(smi: str) -> None:

@@ -3,12 +3,22 @@
 The port of ``repro/launch/mesh.py``. A mesh is a ``core.mesh.Mesh``: an
 array of ``torch.device`` with named axes, where one device may repeat, so
 the reference's 256- and 512-device layouts are laid over one card (or the
-CPU) and the slab of every mesh position is a view of the global tensor.
-The reference's roofline constants are for its own hardware and are left
-out here.
+CPU, or the ``meta`` device of the dry-run) and the slab of every mesh
+position is a view of the global tensor.
+
+``H100`` holds the per-card rates that ``analysis.Roofline.finalize``
+divides by, for one NVIDIA H100 SXM5 (700 W) from NVIDIA's H100 Tensor Core
+GPU datasheet: dense BF16 tensor-core peak 989.4e12 FLOP/s (the datasheet's
+1,979 TFLOPS is with 2:4 sparsity) and HBM3 3.35e12 B/s. The link is the
+slowest one a 256-card mesh crosses: NVLink 4 joins the 8 cards of one
+node (DGX H100), so a (16, 16) mesh spans 32 nodes, and between nodes each
+card has one ConnectX-7 NDR InfiniBand port of 400 Gb/s (the DGX H100 user
+guide), 50e9 B/s a card.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 
@@ -23,12 +33,25 @@ __all__ = [
     "make_production_mesh",
     "make_host_mesh",
     "node_axes_for",
+    "Hardware",
+    "H100",
 ]
 
 SINGLE_POD_SHAPE = (16, 16)
 SINGLE_POD_AXES = ("data", "model")
 MULTI_POD_SHAPE = (2, 16, 16)
 MULTI_POD_AXES = ("pod", "data", "model")
+
+
+class Hardware(NamedTuple):
+    """Per-card rates of the roofline: FLOP/s, HBM B/s, link B/s."""
+
+    peak_flops_bf16: float
+    hbm_bw: float
+    link_bw: float
+
+
+H100 = Hardware(peak_flops_bf16=989.4e12, hbm_bw=3.35e12, link_bw=50e9)
 
 
 def _repeated(shape: tuple[int, ...], axes: tuple[str, ...], device) -> Mesh:

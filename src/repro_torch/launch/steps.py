@@ -86,7 +86,9 @@ def build_train_step(
                         {k: v[i] for k, v in batch.items()})
                 for i in range(num_nodes)
             ])
-            grads = torch.autograd.grad(losses.sum(), leaves)
+            # A leaf the loss never reads (whisper's gelu FFN keeps an
+            # unused w_gate) gets a zero gradient, as under jax.grad.
+            grads = torch.autograd.grad(losses.sum(), leaves, materialize_grads=True)
         return list(grads), losses.detach().mean()
 
     def all_node_grads(params: PyTree, batch: dict) -> tuple[PyTree, torch.Tensor]:

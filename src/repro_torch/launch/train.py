@@ -28,9 +28,10 @@ from repro_torch.experiments.spec import ExperimentSpec
 from repro_torch.experiments.store import ResultsStore
 
 _DESCRIPTION = (
-    "Train an LLM cohort with DecAvg gossip. The reference's --lower-only "
-    "(lowering the full-scale step for a TPU mesh) is XLA machinery and is "
-    "not part of the port (ROADMAP slice H)."
+    "Train an LLM cohort with DecAvg gossip. The reference's docstring "
+    "documents a --lower-only flag that its parser never defines, so neither "
+    "CLI has it; the full-scale step's shape and memory dry-run is "
+    "python -m repro_torch.launch.dryrun."
 )
 
 

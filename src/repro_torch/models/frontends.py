@@ -9,6 +9,10 @@ frontends' output shapes, drawn from a ``torch.Generator`` on its device:
   frontend would produce, for ``transformer.encode``;
 - vlm (internvl2): (B, P, d_model) projected patch embeddings, the prefix
   ``transformer.forward(prefix_embeds=)`` puts ahead of the tokens.
+
+``audio_frames_spec`` and ``patch_embeddings_spec`` are the dry-run's
+stand-ins: empty tensors of the same shapes and dtype on the ``meta``
+device, the counterpart of the reference's ``ShapeDtypeStruct``.
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 
-__all__ = ["audio_frames", "patch_embeddings"]
+__all__ = ["audio_frames", "patch_embeddings", "audio_frames_spec", "patch_embeddings_spec"]
 
 
 def _embeddings(gen: torch.Generator, cfg: ArchConfig, batch: int, n: int) -> torch.Tensor:
@@ -35,3 +39,17 @@ def patch_embeddings(gen: torch.Generator, cfg: ArchConfig, batch: int,
                      num_patches: int) -> torch.Tensor:
     """Synthetic projected vision-patch embeddings (stub for ViT + projector)."""
     return _embeddings(gen, cfg, batch, num_patches)
+
+
+def _spec(cfg: ArchConfig, batch: int, n: int) -> torch.Tensor:
+    return torch.empty((batch, n, cfg.d_model), dtype=cfg.dtype(), device="meta")
+
+
+def audio_frames_spec(cfg: ArchConfig, batch: int, num_frames: int) -> torch.Tensor:
+    """(B, T_frames, d_model) frame embeddings on ``meta``."""
+    return _spec(cfg, batch, num_frames)
+
+
+def patch_embeddings_spec(cfg: ArchConfig, batch: int, num_patches: int) -> torch.Tensor:
+    """(B, P, d_model) patch embeddings on ``meta``."""
+    return _spec(cfg, batch, num_patches)

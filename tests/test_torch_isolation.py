@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``repro_torch`` (nor ``chip_smoke.py``)
-imports ``jax`` or anything of ``repro``, and every entry point asked for the
-default device raises instead of running on the CPU when there is no card:
+"""The port stands alone: no module of ``repro_torch`` (nor ``chip_smoke.py``
+or an ``examples/torch_*.py``) imports ``jax`` or anything of ``repro``, and
+every entry point asked for the default device raises instead of running on
+the CPU when there is no card:
 the DecAvg runner and trainer, serving (model init, caches, the Engine, the
 serve CLI), and LLM-cohort training and routing (the trainer, the lm
 executor, the train CLI, serve-eval, the cohort loader)."""
@@ -70,11 +71,21 @@ def _imported_roots(path: Path) -> set[str]:
 
 @pytest.mark.parametrize(
     "path",
-    sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    + sorted((ROOT / "examples").glob("torch_*.py")),
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_source_imports_neither_jax_nor_repro(path):
     assert not _imported_roots(path) & {"jax", "jaxlib", "repro"}
+
+
+def test_the_scan_covers_the_dry_run_and_the_examples():
+    scanned = {p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")}
+    scanned |= {p.relative_to(ROOT).as_posix() for p in (ROOT / "examples").glob("torch_*.py")}
+    for mod in ("shapes", "analysis", "dryrun"):
+        assert f"src/repro_torch/launch/{mod}.py" in scanned
+    assert {"examples/torch_quickstart.py", "examples/torch_serve_decode.py",
+            "examples/torch_decentralized_llm.py"} <= scanned
 
 
 @pytest.fixture()

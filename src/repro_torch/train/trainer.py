@@ -212,10 +212,18 @@ class DecentralizedTrainer:
         self.momentum = sgd.init(self.params).momentum
         self.cstate = None if self.compress is None else compress_mod.init(self.params)
         self._has_hist = self.faulted and self.engine.fault_trace.delay_max > 0
+        # The dense (N, N) W of the schedule period the trainer is in, as the
+        # reference keeps it; refreshed by _enter_period.
+        self.w = self.engine.w
 
     @property
     def graph(self):
         return self.engine.graph
+
+    def _enter_period(self, r: int) -> None:
+        """Move the engine, and ``w``, to round ``r``'s schedule period."""
+        if self.engine.refresh(r):
+            self.w = self.engine.w
 
     @property
     def supports_fused(self) -> bool:
@@ -325,7 +333,6 @@ class DecentralizedTrainer:
             if hist is not None:
                 pub, _ = faults_mod.push_and_publish(self.params, hist, r, delay)
             if self.engine.is_gossip_round(r):
-                self.engine.refresh(r)
                 self.params = self.engine.mix_faulted(self.params, r, pub)
 
     def run(
@@ -360,12 +367,12 @@ class DecentralizedTrainer:
                     self.params, self.engine.fault_trace.delay_max + 1
                 )
         for r in range(rounds):
+            self._enter_period(r)
             if self.faulted:
                 self._round_faulted(r, hist, delay)
             else:
                 self._local_steps(r)
                 if self.engine.is_gossip_round(r):
-                    self.engine.refresh(r)
                     with torch.no_grad():
                         self.params = self._gossip(self.engine.mix, self.params)
             if x_test is not None and (r % eval_every == 0 or r == rounds - 1):
@@ -427,6 +434,7 @@ class DecentralizedTrainer:
                 for i, r in enumerate(range(start, end + 1)):
                     staged.round(r, idx[i])
                 start = end + 1
+                self._enter_period(end)
                 if do_eval:
                     m = self.eval_round(end, x_test, y_test, t0)
                     history.append(m)

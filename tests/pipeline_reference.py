@@ -1,13 +1,15 @@
 """Runs the JAX reference's pipeline decoders on fake CPU devices and saves
 what they chose, for the port's tests to hold their own pipelines to.
 
-    python tests/pipeline_reference.py OUT.npz llama|zoo
+    python tests/pipeline_reference.py OUT.npz llama|zoo|depth
 
 ``llama``: the reduced llama in the shape of the reference's manual-pipeline
 test, the auto variant on meshes (2, 2) and (4, 1) with the plain and the
 int8 cache, the manual variant on (2, 2) and (pod 2, 2, 2). ``zoo``: the
 auto variant with the plain cache on (2, 2) for every reduced decoder-only
-arch. Each case decodes from tokens 1..B, feeding back its own choice, and
+arch. ``depth``: that llama at llama3.2-1b's full depth (16 layers), the
+auto variant on (4, 2) with the int8 cache, batch 8 (two rows a
+microgroup), 16 steps. Each case decodes from tokens 1..B, feeding back its own choice, and
 saves the tokens fed, the tokens chosen and the final cache leaves. Weights
 are ``init_params(PRNGKey(0), cfg)``, as the tests draw them.
 """
@@ -30,6 +32,7 @@ from repro.serve import pipeline as PL  # noqa: E402
 from repro.serve import pipeline_manual as PM  # noqa: E402
 
 B, T = 4, 16
+DEPTH_LAYERS, DEPTH_BATCH, DEPTH_STEPS = 16, 8, 16
 SHAPE = dict(num_layers=4, num_heads=4, num_kv_heads=2, head_dim=32, d_model=128,
              d_ff=256, vocab_size=512)
 DECODER_ONLY = ["llama32_1b", "stablelm_3b", "mistral_large_123b", "minicpm_2b",
@@ -45,15 +48,15 @@ def mesh_of(shape):
     return jax.make_mesh(shape, axes, axis_types=(jax.sharding.AxisType.Auto,) * len(axes))
 
 
-def decode(out, name, cfg, shape, *, manual, kv_quant, steps):
+def decode(out, name, cfg, shape, *, manual, kv_quant, steps, b=B):
     mesh = mesh_of(shape)
     params = TF.init_params(jax.random.PRNGKey(0), cfg)
     step = jax.jit(PL.build_pipeline_step(cfg, mesh, manual=manual))
     if manual:
-        cache = PM.init_kv_cache(cfg, B, T, tp=mesh.shape["model"])
+        cache = PM.init_kv_cache(cfg, b, T, tp=mesh.shape["model"])
     else:
-        cache = TF.init_cache(cfg, B, T, kv_quant=kv_quant)
-    t = jnp.arange(1, B + 1, dtype=jnp.int32)
+        cache = TF.init_cache(cfg, b, T, kv_quant=kv_quant)
+    t = jnp.arange(1, b + 1, dtype=jnp.int32)
     fed, chosen = [], []
     for _ in range(steps):
         fed.append(np.asarray(t))
@@ -74,6 +77,10 @@ def main(path, which):
                 decode(out, f"auto{shape}{q}", cfg, shape, manual=False, kv_quant=q, steps=4)
         for shape in ((2, 2), (2, 2, 2)):
             decode(out, f"manual{shape}", cfg, shape, manual=True, kv_quant=True, steps=4)
+    elif which == "depth":
+        cfg = dataclasses.replace(llama_shape(), num_layers=DEPTH_LAYERS)
+        decode(out, "depth", cfg, (4, 2), manual=False, kv_quant=True, steps=DEPTH_STEPS,
+               b=DEPTH_BATCH)
     else:
         for arch in DECODER_ONLY:
             decode(out, arch, cfgbase.get(arch).reduced(), (2, 2), manual=False,

@@ -914,3 +914,78 @@ def test_train_and_prefill_steps_on_the_card(cuda):
     first = ST.build_prefill_step(cfg)(member, {"tokens": prompts})
     want = SD.generate(member, cfg, prompts, TF.init_cache(cfg, 3, 21, device=cuda), steps=1)
     assert torch.equal(first, want[:, 0])
+
+
+def test_machine_fingerprint_on_the_card(cuda):
+    """The fingerprint names every card and its power limit (nvidia-smi),
+    and two calls give equal dicts."""
+    from repro_torch.core.machine import machine_fingerprint
+
+    fp = machine_fingerprint()
+    n = torch.cuda.device_count()
+    assert fp["backend"] == "cuda" and fp["cuda"] == torch.version.cuda
+    assert fp["devices"] == [torch.cuda.get_device_name(i) for i in range(n)]
+    assert len(fp["power_limit"]) == n and all(p.endswith(" W") for p in fp["power_limit"])
+    assert machine_fingerprint() == fp
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["run", "run_fused"])
+def test_trainer_w_follows_the_schedule_on_the_card(cuda, fused):
+    """``DecentralizedTrainer.w`` on the card is the CPU trainer's W after
+    every round of an @rewire schedule."""
+    rng = np.random.default_rng(0)
+    x = rng.random((80, 16), dtype=np.float32)
+    y = np.arange(80) % 4
+    parts = [np.arange(8 * i, 8 * i + 8) for i in range(10)]
+    ws = {}
+    for dev in ("cpu", cuda):
+        loader = NodeLoader(x, y, parts, batch_size=4, device=dev)
+        tr = trainer_mod.DecentralizedTrainer(
+            "er:n=10,p=0.5@rewire=2", loader, in_dim=16, hidden=(8,), num_classes=4,
+            device=dev)
+        got = [tr.w.cpu()]
+        (tr.run_fused if fused else tr.run)(6, eval_every=1, x_test=x, y_test=y,
+                                            on_round=lambda m: got.append(tr.w.cpu()))
+        ws[str(dev)] = got
+    assert len({w.numpy().tobytes() for w in ws["cpu"]}) > 1
+    for a, b in zip(ws["cpu"], ws["cuda"]):
+        torch.testing.assert_close(b, a, rtol=0, atol=1e-7)
+
+
+def test_auto_int8_pipeline_matches_the_microgroup_control_on_the_card(cuda):
+    """The auto pipeline (reduced widths, 16 layers, (4, 2), int8, batch 8,
+    16 steps fed the serve step's tokens): its whole cache within one level
+    of build_serve_step run over each microgroup's 2 rows alone, the caches
+    concatenated (scales 1e-5 relative)."""
+    import dataclasses
+
+    from repro_torch.launch import mesh as LM
+    from repro_torch.launch import steps as ST
+    from repro_torch.serve import pipeline as PL
+
+    cfg = dataclasses.replace(_pipe_cfg(), num_layers=16)
+    params = TF.init_params(0, cfg, device=cuda)
+    b, t_len, stages = 8, 16, 4
+    serve = ST.build_serve_step(cfg)
+    cache = TF.init_cache(cfg, b, t_len, kv_quant=True, device=cuda)
+    fed, tok = [], torch.arange(1, b + 1, dtype=torch.int32, device=cuda)
+    for _ in range(16):
+        fed.append(tok)
+        tok, cache = serve(params, tok, cache)
+    step = PL.build_pipeline_step(cfg, LM.make_host_mesh((stages, 2), device=cuda))
+    got = TF.init_cache(cfg, b, t_len, kv_quant=True, device=cuda)
+    for t in fed:
+        _, got = step(params, t, got)
+    mb, parts = b // stages, []
+    for m in range(stages):
+        c = TF.init_cache(cfg, mb, t_len, kv_quant=True, device=cuda)
+        for t in fed:
+            _, c = serve(params, t[m * mb:(m + 1) * mb], c)
+        parts.append(c["layer0"]["mixer"])
+    got = got["layer0"]["mixer"]
+    for k in ("k", "v"):
+        want = torch.cat([p[k] for p in parts], dim=1)
+        assert int((got[k].int() - want.int()).abs().max()) <= 1
+    for k in ("k_scale", "v_scale"):
+        torch.testing.assert_close(got[k], torch.cat([p[k] for p in parts], dim=1),
+                                   rtol=1e-5, atol=0)

@@ -19,6 +19,8 @@ EXAMPLES = {
     "torch_serve_decode.py": (["--gen", "4"], "through a 16-slot ring cache"),
     "torch_decentralized_llm.py": (["--steps", "3", "--seq", "16", "--batch", "2"],
                                    "consensus distance across nodes"),
+    "torch_topology_study.py": (["--nodes", "16", "--rounds", "1"],
+                                "tighter communities hinder spread"),
 }
 
 

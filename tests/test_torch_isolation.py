@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``repro_torch`` (nor ``chip_smoke.py``
-or an ``examples/torch_*.py``) imports ``jax`` or anything of ``repro``, and
+or an ``examples/torch_*.py``) imports ``jax``, anything of ``repro``, or the
+reference's ``benchmarks`` (which import ``repro``), and
 every entry point asked for the default device raises instead of running on
 the CPU when there is no card:
 the DecAvg runner and trainer, serving (model init, caches, the Engine, the
@@ -19,6 +20,7 @@ import torch
 import repro_torch
 from repro_torch.configs import base as cfgbase
 from repro_torch.core.decavg import GossipEngine
+from repro_torch.core.machine import machine_fingerprint
 from repro_torch.data.loader import NodeLoader
 from repro_torch.device import resolve_device
 from repro_torch.experiments import runner, sweep
@@ -76,7 +78,7 @@ def _imported_roots(path: Path) -> set[str]:
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_source_imports_neither_jax_nor_repro(path):
-    assert not _imported_roots(path) & {"jax", "jaxlib", "repro"}
+    assert not _imported_roots(path) & {"jax", "jaxlib", "repro", "benchmarks"}
 
 
 def test_the_scan_covers_the_dry_run_and_the_examples():
@@ -85,7 +87,8 @@ def test_the_scan_covers_the_dry_run_and_the_examples():
     for mod in ("shapes", "analysis", "dryrun"):
         assert f"src/repro_torch/launch/{mod}.py" in scanned
     assert {"examples/torch_quickstart.py", "examples/torch_serve_decode.py",
-            "examples/torch_decentralized_llm.py"} <= scanned
+            "examples/torch_decentralized_llm.py", "examples/torch_topology_study.py",
+            "src/repro_torch/core/machine.py"} <= scanned
 
 
 @pytest.fixture()
@@ -106,6 +109,7 @@ def _llm():
 
 _ENTRY_POINTS = {
     "resolve_device": lambda tmp: resolve_device(None),
+    "machine_fingerprint": lambda tmp: machine_fingerprint(),
     "GossipEngine": lambda tmp: GossipEngine("ring:n=6"),
     "DecentralizedTrainer": lambda tmp: DecentralizedTrainer(
         "ring:n=6", _cpu_loader(), in_dim=8, num_classes=2

@@ -60,7 +60,7 @@ def main(argv=None) -> None:
     print("\n== knowledge spread ==")
     x_test = torch.as_tensor(ds.x_test, device=dev)
     y_test = torch.as_tensor(ds.y_test, dtype=torch.int64, device=dev)
-    _accs, _gaccs, logits = tr._eval(x_test, y_test)
+    _accs, _gaccs, logits = tr._eval(tr.params, x_test, y_test, None)
     cms = torch.stack([confusion_matrix(lg, y_test, ds.num_classes) for lg in logits]).cpu().numpy()
     non_holders = [i for i in range(n) if i not in holders]
     g2_recall = cms[non_holders][:, 5:, :].diagonal(offset=5, axis1=1, axis2=2).mean()

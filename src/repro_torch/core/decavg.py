@@ -26,7 +26,11 @@ The execution paths, numerically equivalent (tests hold them to 3e-5):
    assembled by an "allgather" or a "ring" of ``ppermute`` steps, then the
    shard's rows summed in ``mix_ell``'s order, so it gives the same bits as
    ``sparse`` for any S) and ``mix_permute`` (one ``ppermute`` per edge
-   color, one node a shard).
+   color, one node a shard). Each takes the whole node axis on one device
+   and moves the slabs out and back; ``mix_sharded_sparse_slabs`` (and
+   ``MixingProgram.apply_local``) take and give per-shard slabs, each on
+   its shard's device, which is how a sharded ``run_fused`` keeps its
+   state sharded end to end.
 
 ``GossipEngine`` is the front door: it owns the topology (static graph or
 TopologySchedule), builds the mixing matrix (and, for the sparse backends,
@@ -46,7 +50,7 @@ then also stages the run's alive and entry-keep masks.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -62,12 +66,15 @@ from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 __all__ = [
     "GossipEngine",
     "MixingProgram",
+    "ShardFaults",
     "gossip_error",
     "mix_dense",
     "mix_pallas",
     "mix_sharded",
     "mix_sharded_sparse",
     "mix_sharded_sparse_faulted",
+    "mix_sharded_sparse_slabs",
+    "mix_sharded_sparse_faulted_slabs",
     "mix_permute",
 ]
 
@@ -158,6 +165,20 @@ def mix_sharded(
     return tree_map(mix_one, params)
 
 
+def _cat_leaves(tree: PyTree) -> torch.Tensor:
+    """A tree's node-stacked leaves as one (n, P_total) f32 matrix, side by
+    side in ``tree_leaves`` order."""
+    flats = [leaf.reshape(leaf.shape[0], -1).float() for leaf in tree_leaves(tree)]
+    return flats[0] if len(flats) == 1 else torch.cat(flats, dim=1)
+
+
+def _split_leaves(out: torch.Tensor, like: PyTree) -> PyTree:
+    """``out`` (n, P_total) cut back into ``like``'s leaves and dtypes."""
+    leaves = tree_leaves(like)
+    outs = out.split([leaf[0].numel() for leaf in leaves], dim=1)
+    return tree_unflatten(like, [o.reshape(l.shape).to(l.dtype) for o, l in zip(outs, leaves)])
+
+
 def _mix_leaves_concatenated(params: PyTree, n: int, mix_cat, *more: PyTree) -> PyTree:
     """Run ``mix_cat`` once on all leaves' features side by side.
 
@@ -166,25 +187,18 @@ def _mix_leaves_concatenated(params: PyTree, n: int, mix_cat, *more: PyTree) -> 
     while the halo exchange runs once a round instead of once a leaf. Trees
     in ``more`` laid out like ``params`` (the faulted round's published
     snapshots) are concatenated alike and passed after it."""
-    leaves = tree_leaves(params)
-    for leaf in leaves:
+    for leaf in tree_leaves(params):
         if leaf.shape[0] != n:
             raise ValueError(f"leaf leading axis {leaf.shape[0]} != num_nodes {n}")
-
-    def cat(ls: list[torch.Tensor]) -> torch.Tensor:
-        flats = [leaf.reshape(n, -1).float() for leaf in ls]
-        return flats[0] if len(flats) == 1 else torch.cat(flats, dim=1)
-
-    out = mix_cat(cat(leaves), *(cat(tree_leaves(t)) for t in more))
-    outs = out.split([leaf[0].numel() for leaf in leaves], dim=1)
-    return tree_unflatten(params, [o.reshape(l.shape).to(l.dtype) for o, l in zip(outs, leaves)])
+    return _split_leaves(mix_cat(_cat_leaves(params), *(_cat_leaves(t) for t in more)), params)
 
 
-def _resolve_halo(layout: sparse.ShardedELL, halo_schedule: str) -> bool:
-    """True for the ring: ``auto`` takes it when its wire (``ring_width``
+def _resolve_ring(view: sparse.ShardView, halo_schedule: str) -> bool:
+    """True for the ring: ``auto`` takes it when its wire (the ring steps'
     rows) undercuts the allgather's N - N/S."""
     if halo_schedule == "auto":
-        return layout.ring_width < layout.n - layout.rows_per_shard
+        ring_width = sum(int(a.shape[0]) for a in view.ring_send)
+        return ring_width < view.n - view.rows_per_shard
     if halo_schedule not in ("allgather", "ring"):
         raise ValueError(
             f"halo_schedule must be 'allgather', 'ring' or 'auto', got {halo_schedule!r}"
@@ -192,60 +206,131 @@ def _resolve_halo(layout: sparse.ShardedELL, halo_schedule: str) -> bool:
     return halo_schedule == "ring"
 
 
-def _halo_buffers(layout: sparse.ShardedELL, slabs: list[torch.Tensor],
-                  devices: list[torch.device], ring: bool) -> list[torch.Tensor]:
-    """Each shard's (H, p) halo buffer: the rows of P its entries reference,
-    in halo order.
+# The per-shard pieces of a sharded sparse round, the counterpart of the
+# reference's ``_sharded_mix_leaf``: each shard's sends and rows are
+# computed on its own device from its own (blk, p) slab, and the exchange
+# between them is the only code that moves data from one shard to another.
 
-    ring: own rows copied locally, then S-1 ``ppermute`` steps, step d
-    moving to each shard exactly the rows it needs from its distance-d peer
-    (zero-width steps are skipped). The buffers have one scratch row at
-    slot H for padded destinations, dropped at the end. allgather: the full
-    node axis gathered to each shard in turn, its halo rows taken."""
-    shards, h = layout.shards, layout.halo_width
+
+def _halo_sends(view: sparse.ShardView, src: torch.Tensor, ring: bool) -> list[torch.Tensor]:
+    """What one shard sends in a round's halo exchange: under the ring, the
+    (K_d, p) rows its peer at each distance needs; under the allgather, its
+    whole slab."""
     if not ring:
-        return [mesh_mod.all_gather(slabs, d).index_select(0, layout.halo[s].to(d))
-                for s, d in enumerate(devices)]
-    bufs = []
-    for s, d in enumerate(devices):
-        buf = slabs[s].new_zeros((h + 1, slabs[s].shape[1]))
-        buf[layout.local_dst[s].to(d)] = slabs[s].index_select(0, layout.local_src[s].to(d))
-        bufs.append(buf)
-    for dist, (send, recv) in enumerate(zip(layout.ring_send, layout.ring_recv), 1):
-        if send.shape[-1] == 0:
-            continue  # no shard pair exchanges at this distance
-        out = [slabs[s].index_select(0, send[s].to(d)) for s, d in enumerate(devices)]
-        got = mesh_mod.ppermute(out, [(s, (s + dist) % shards) for s in range(shards)], devices)
-        for s, d in enumerate(devices):
-            bufs[s][recv[s].to(d)] = got[s]
-    return [b[:h] for b in bufs]
+        return [src]
+    return [src.index_select(0, send) for send in view.ring_send]
 
 
-def _shard_sum(layout: sparse.ShardedELL, s: int, buf: torch.Tensor,
-               p_chunk: int | None) -> torch.Tensor:
-    """Shard ``s``'s rows: its ELL slots summed over its halo buffer in slot
+def _halo_exchange(sends: list[list[torch.Tensor]], devices: list[torch.device],
+                   views: tuple[sparse.ShardView, ...], ring: bool) -> list[list[torch.Tensor]]:
+    """Every shard's ``_halo_sends`` through ``core.mesh``'s collectives:
+    what each shard receives, one block a ring distance (from shard s - d)
+    or, under the allgather, the full node axis."""
+    shards = len(devices)
+    if not ring:
+        slabs = [x[0] for x in sends]
+        return [[mesh_mod.all_gather(slabs, d)] for d in devices]
+    got: list[list[torch.Tensor]] = [[] for _ in range(shards)]
+    for k, dist in enumerate(views[0].ring_dists):
+        moved = mesh_mod.ppermute([x[k] for x in sends],
+                                  [(s, (s + dist) % shards) for s in range(shards)], devices)
+        for s in range(shards):
+            got[s].append(moved[s])
+    return got
+
+
+def _halo_buffer(view: sparse.ShardView, src: torch.Tensor, got: list[torch.Tensor],
+                 ring: bool) -> torch.Tensor:
+    """One shard's (H, p) halo buffer: the rows of P its entries reference,
+    in halo order. ring: its own rows copied locally, the received rows at
+    their slots, in a buffer with one scratch row at slot H for padded
+    destinations, dropped at the end. allgather: its halo rows of the
+    gathered node axis."""
+    if not ring:
+        return got[0].index_select(0, view.halo)
+    h = view.halo_width
+    buf = src.new_zeros((h + 1, src.shape[1]))
+    buf[view.local_dst] = src.index_select(0, view.local_src)
+    for recv, rows in zip(view.ring_recv, got):
+        buf[recv] = rows
+    return buf[:h]
+
+
+def _shard_rows(view: sparse.ShardView, buf: torch.Tensor, p_chunk: int | None) -> torch.Tensor:
+    """One shard's rows: its ELL slots summed over its halo buffer in slot
     order (``sparse._ell_sum``), in ``p_chunk`` column slabs when set."""
-    dev = buf.device
-    w = layout.widths[s]
-    idx, val = layout.idx[s, :, :w].to(dev), layout.val[s, :, :w].to(dev)
     p = buf.shape[1]
     if p_chunk is not None and p_chunk < p:
-        return torch.cat([sparse._ell_sum(idx, val, buf[:, c:c + p_chunk])
+        return torch.cat([sparse._ell_sum(view.idx, view.val, buf[:, c:c + p_chunk])
                           for c in range(0, p, p_chunk)], dim=1)
-    return sparse._ell_sum(idx, val, buf)
+    return sparse._ell_sum(view.idx, view.val, buf)
 
 
-def _as_layout(shcsr, device: torch.device) -> sparse.ShardedELL:
-    if isinstance(shcsr, sparse.ShardedELL):
-        return shcsr
-    return sparse.ShardedELL.from_csr(shcsr, device)
+def _shard_rows_faulted(view: sparse.ShardView, buf: torch.Tensor, cur: torch.Tensor,
+                        keep: torch.Tensor, alive: torch.Tensor, stale: bool) -> torch.Tensor:
+    """One shard's faulted rows, ``faults.mix_faulted_ell``'s on them:
+    ``keep`` is its (E,) entry mask, ``alive`` its (blk,) nodes' and ``cur``
+    their (blk, p) current params; ``stale`` when ``buf`` holds published
+    snapshots."""
+    k = keep[view.pos.reshape(-1)].reshape(view.pos.shape)
+    coefs = faults_mod.faulted_ell_coefs(view.val, k, alive, view.is_diag)
+    return faults_mod.faulted_ell_rows(view.idx, coefs, cur, buf, stale)
 
 
-def _check_shards(layout: sparse.ShardedELL, axes, shards: int) -> None:
-    if layout.shards != shards:
+def _views_of(shcsr, devices: list[torch.device], axes) -> tuple[sparse.ShardView, ...]:
+    """Per-shard views on ``devices`` of a ``ShardedCSR``, a ``ShardedELL``
+    or views already staged."""
+    if isinstance(shcsr, sparse.ShardedCSR):
+        shcsr = sparse.ShardedELL.from_csr(shcsr, torch.device("cpu"))
+    shards = len(shcsr) if isinstance(shcsr, tuple) else shcsr.shards
+    if shards != len(devices):
         raise ValueError(
-            f"ShardedCSR built for {layout.shards} shards but mesh axis {axes} has {shards}"
+            f"ShardedCSR built for {shards} shards but mesh axis {axes} has {len(devices)}"
         )
+    if isinstance(shcsr, tuple):
+        return shcsr
+    return shcsr.shard_views(devices)
+
+
+def mix_sharded_sparse_slabs(
+    views: tuple[sparse.ShardView, ...],
+    slabs: list[torch.Tensor],
+    *,
+    devices: list[torch.device],
+    halo_schedule: str = "allgather",
+    p_chunk: int | None = None,
+) -> list[torch.Tensor]:
+    """One sparse round over per-shard slabs: shard s's (blk, p) f32 slab on
+    ``devices[s]`` in, its mixed rows out on the same device. Nothing is
+    gathered to one device; the halo exchange is the only traffic between
+    shards (the reference's ``_sharded_mix_leaf`` on every shard)."""
+    ring = _resolve_ring(views[0], halo_schedule)
+    got = _halo_exchange([_halo_sends(v, x, ring) for v, x in zip(views, slabs)],
+                         devices, views, ring)
+    return [_shard_rows(v, _halo_buffer(v, x, g, ring), p_chunk)
+            for v, x, g in zip(views, slabs, got)]
+
+
+def mix_sharded_sparse_faulted_slabs(
+    views: tuple[sparse.ShardView, ...],
+    slabs: list[torch.Tensor],
+    pub: list[torch.Tensor] | None,
+    keep: list[torch.Tensor],
+    alive: list[torch.Tensor],
+    *,
+    devices: list[torch.device],
+    halo_schedule: str = "allgather",
+) -> list[torch.Tensor]:
+    """One faulted sparse round over per-shard slabs (cf.
+    ``mix_sharded_sparse_slabs``): ``pub`` the shards' published snapshots
+    (None: every publish is fresh), ``keep`` each shard's (E,) entry mask
+    and ``alive`` its (blk,) node mask, on its device."""
+    ring = _resolve_ring(views[0], halo_schedule)
+    srcs = slabs if pub is None else pub
+    got = _halo_exchange([_halo_sends(v, x, ring) for v, x in zip(views, srcs)],
+                         devices, views, ring)
+    return [_shard_rows_faulted(v, _halo_buffer(v, x, g, ring), c, k, a, pub is not None)
+            for v, x, g, c, k, a in zip(views, srcs, got, slabs, keep, alive)]
 
 
 def mix_sharded_sparse(
@@ -259,9 +344,10 @@ def mix_sharded_sparse(
 ) -> PyTree:
     """Sparse DecAvg round with the node axis split over ``node_axis``.
 
-    ``shcsr`` is a ``core.sparse.ShardedCSR`` (or its device view, a
-    ``ShardedELL``): each shard owns a contiguous row range of W with
-    halo-local column ids. All leaves go side by side, and per shard:
+    ``shcsr`` is a ``core.sparse.ShardedCSR`` (or its device layout, a
+    ``ShardedELL``, or that layout's per-shard views): each shard owns a
+    contiguous row range of W with halo-local column ids. All leaves go side
+    by side, are cut into one slab per shard on its device, and per shard:
 
       1. assemble the shard's halo, the source rows its entries reference,
          into an (H, p) buffer (``halo_schedule`` "allgather", "ring", or
@@ -270,20 +356,18 @@ def mix_sharded_sparse(
          ``sparse.mix_ell`` sums the whole matrix: the same bits as the
          ``sparse`` backend for any S and either schedule.
 
-    ``p_chunk`` sums the buffer in column slabs of that width.
+    The rows come back to the params' device. ``p_chunk`` sums the buffer
+    in column slabs of that width.
     """
-    axes, shards, devices = _shards_of(mesh, node_axis)
-    layout = _as_layout(shcsr, tree_leaves(params)[0].device)
-    _check_shards(layout, axes, shards)
-    ring = _resolve_halo(layout, halo_schedule)
+    axes, _, devices = _shards_of(mesh, node_axis)
+    views = _views_of(shcsr, devices, axes)
 
     def mix_cat(cat: torch.Tensor) -> torch.Tensor:
-        slabs = _slabs(cat, devices)
-        bufs = _halo_buffers(layout, slabs, devices, ring)
-        return torch.cat([_shard_sum(layout, s, bufs[s], p_chunk).to(cat.device)
-                          for s in range(shards)])
+        outs = mix_sharded_sparse_slabs(views, _slabs(cat, devices), devices=devices,
+                                        halo_schedule=halo_schedule, p_chunk=p_chunk)
+        return mesh_mod.gather(outs, cat.device)
 
-    return _mix_leaves_concatenated(params, layout.n, mix_cat)
+    return _mix_leaves_concatenated(params, views[0].n, mix_cat)
 
 
 def mix_sharded_sparse_faulted(
@@ -306,33 +390,21 @@ def mix_sharded_sparse_faulted(
     the shard's rows (renormalized surviving weights, the fresh self term
     when publishes are stale, dead and emptied rows bit-unchanged), so it
     gives the ``sparse`` backend's bits."""
-    axes, shards, devices = _shards_of(mesh, node_axis)
-    layout = _as_layout(shcsr, tree_leaves(params)[0].device)
-    _check_shards(layout, axes, shards)
-    ring = _resolve_halo(layout, halo_schedule)
-    blk = layout.rows_per_shard
+    axes, _, devices = _shards_of(mesh, node_axis)
+    views = _views_of(shcsr, devices, axes)
+    blk = views[0].rows_per_shard
 
     def mix_cat(cat: torch.Tensor, pcat: torch.Tensor | None = None) -> torch.Tensor:
-        slabs = _slabs(cat, devices)
-        pslabs = slabs if pcat is None else _slabs(pcat, devices)
-        bufs = _halo_buffers(layout, pslabs, devices, ring)
-        outs = []
-        for s, d in enumerate(devices):
-            w = layout.widths[s]
-            idx = layout.idx[s, :, :w].to(d)
-            pos = layout.pos[s, :, :w].to(d)
-            k = keep[s].to(d)[pos.reshape(-1)].reshape(pos.shape)
-            rows = s * blk + torch.arange(blk, device=d)
-            is_diag = layout.halo[s].to(d)[idx] == rows[:, None]
-            coefs = faults_mod.faulted_ell_coefs(
-                layout.val[s, :, :w].to(d), k, alive[s * blk:(s + 1) * blk].to(d), is_diag
-            )
-            out = faults_mod.faulted_ell_rows(idx, coefs, slabs[s], bufs[s], pcat is not None)
-            outs.append(out.to(cat.device))
-        return torch.cat(outs)
+        outs = mix_sharded_sparse_faulted_slabs(
+            views, _slabs(cat, devices), None if pcat is None else _slabs(pcat, devices),
+            [keep[s].to(d) for s, d in enumerate(devices)],
+            [alive[s * blk:(s + 1) * blk].to(d) for s, d in enumerate(devices)],
+            devices=devices, halo_schedule=halo_schedule,
+        )
+        return mesh_mod.gather(outs, cat.device)
 
     more = () if pub is None else (pub,)
-    return _mix_leaves_concatenated(params, layout.n, mix_cat, *more)
+    return _mix_leaves_concatenated(params, views[0].n, mix_cat, *more)
 
 
 def mix_permute(
@@ -377,6 +449,16 @@ def mix_permute(
 # ---------------------------------------------------------------------------
 
 
+class ShardFaults(NamedTuple):
+    """One shard's slice of a faulted program's masks, on its device:
+    ``alive`` (rounds, blk), ``keep`` (rounds, E) over its entries and the
+    straggler delays ``delay`` (blk,) of its nodes."""
+
+    alive: torch.Tensor
+    keep: torch.Tensor
+    delay: torch.Tensor
+
+
 @dataclasses.dataclass(frozen=True)
 class MixingProgram:
     """Every schedule period of a run, materialized as stacked operators.
@@ -404,7 +486,11 @@ class MixingProgram:
       (``sh_ell_idx``/``sh_ell_val``/``sh_ell_pos`` (T, S, blk, K), summing
       ``sh_widths[s]`` slots), mixed by ``mix_sharded_sparse`` over
       ``mesh``'s ``node_axis`` with ``halo_schedule`` ("auto" resolves from
-      the stacked widths, common to every period) and ``p_chunk``.
+      the stacked widths, common to every period) and ``p_chunk``. Each
+      period slot's per-shard views (``sh_views[t][s]``) and, on a faulted
+      program, each shard's slice of the fault masks (``sh_faults[s]``)
+      are staged once on the shard's device: ``apply_local`` and its pieces
+      mix per-shard slabs with them, and never gather to one device.
 
     ``cadence`` is "always" (gossip_every == 1), "never" (0) or "mask".
     ``pad_ratio`` is stacked operator slots per real W entry (1.0 for dense).
@@ -440,6 +526,8 @@ class MixingProgram:
     sh_ell_val: torch.Tensor | None = None  # (T, S, blk, K) f32
     sh_ell_pos: torch.Tensor | None = None  # (T, S, blk, K) int64, entry of each slot
     sh_widths: tuple[int, ...] = ()  # slots shard s sums
+    sh_views: tuple[tuple[sparse.ShardView, ...], ...] = ()  # [t][s], on shard s's device
+    sh_faults: tuple["ShardFaults", ...] = ()  # [s], on shard s's device
     mesh: Any = None  # kind == "sparse_sharded"
     node_axis: str | tuple[str, ...] | None = None
     shards: int | None = None
@@ -469,7 +557,7 @@ class MixingProgram:
             keep, alive = _row(self.f_keep, r), _row(self.f_alive, r)
             if self.kind == "sparse_sharded":
                 return mix_sharded_sparse_faulted(
-                    self.sharded_at(t), params, pub, keep, alive, mesh=self.mesh,
+                    self.sh_views[t], params, pub, keep, alive, mesh=self.mesh,
                     node_axis=self.node_axis, halo_schedule=self.halo_schedule,
                 )
             if self.kind == "dense":
@@ -483,24 +571,74 @@ class MixingProgram:
             return sparse.mix_ell(self.ell_idx[t], self.ell_val[t], params, p_chunk=self.p_chunk)
         if self.kind == "sparse_sharded":
             return mix_sharded_sparse(
-                self.sharded_at(t), params, mesh=self.mesh, node_axis=self.node_axis,
+                self.sh_views[t], params, mesh=self.mesh, node_axis=self.node_axis,
                 p_chunk=self.p_chunk, halo_schedule=self.halo_schedule,
             )
         return sparse.mix_kernel(
             ops.gossip_mix_sparse_blocked, self.bell_idx[t], self.bell_val[t], params
         )
 
-    def sharded_at(self, t: int) -> sparse.ShardedELL:
-        """Period slot ``t``'s sharded layout, as views of the stacked
-        tensors (kind "sparse_sharded")."""
-        return sparse.ShardedELL(
-            halo=self.sh_halo[t], local_src=self.sh_local_src[t],
-            local_dst=self.sh_local_dst[t],
-            ring_send=tuple(a[t] for a in self.sh_ring_send),
-            ring_recv=tuple(a[t] for a in self.sh_ring_recv),
-            idx=self.sh_ell_idx[t], val=self.sh_ell_val[t], pos=self.sh_ell_pos[t],
-            widths=self.sh_widths, n=self.n,
-        )
+    # -- kind "sparse_sharded" over per-shard slabs (the reference's
+    # ``apply_local`` and ``mix_at_local``): the pieces run one shard at a
+    # time on its own device, and only ``exchange`` moves data between them.
+
+    @property
+    def shard_devices(self) -> list[torch.device]:
+        """The device of each shard of the node axis, in shard order."""
+        return self.mesh.shard_devices(mesh_mod.axes_of(self.node_axis))
+
+    @property
+    def ring(self) -> bool:
+        """Whether the halo goes round the ring (else the allgather),
+        resolved once from the stacked widths, common to every period."""
+        return _resolve_ring(self.sh_views[0][0], self.halo_schedule)
+
+    def local_sends(self, t: int, s: int, src: torch.Tensor) -> list[torch.Tensor]:
+        """Shard ``s``'s part of period slot ``t``'s halo exchange, from its
+        (blk, p) slab ``src`` (the published snapshots on a faulted round
+        with stragglers)."""
+        return _halo_sends(self.sh_views[t][s], src, self.ring)
+
+    def exchange(self, t: int, sends: list[list[torch.Tensor]]) -> list[list[torch.Tensor]]:
+        """Slot ``t``'s halo exchange over every shard's ``local_sends``:
+        the round's only traffic between shards."""
+        return _halo_exchange(sends, self.shard_devices, self.sh_views[t], self.ring)
+
+    def local_rows(self, t: int, s: int, src: torch.Tensor, got: list[torch.Tensor], *,
+                   r=None, cur: torch.Tensor | None = None, stale: bool = False) -> torch.Tensor:
+        """Shard ``s``'s mixed (blk, p) rows for slot ``t``, from its slab
+        ``src`` and what it received (``got``). On a faulted program, round
+        ``r``'s masks (``r`` an int or an int64 tensor on the shard's
+        device), ``cur`` its current params and ``stale`` when ``src`` holds
+        published snapshots."""
+        view = self.sh_views[t][s]
+        buf = _halo_buffer(view, src, got, self.ring)
+        if not self.faulted:
+            return _shard_rows(view, buf, self.p_chunk)
+        f = self.sh_faults[s]
+        return _shard_rows_faulted(view, buf, cur, _row(f.keep, r), _row(f.alive, r), stale)
+
+    def apply_local(self, params: list[PyTree], r: int,
+                    pub: list[PyTree] | None = None) -> list[PyTree]:
+        """Kind "sparse_sharded": round ``r``'s mix of per-shard slabs, shard
+        s's (blk, ...) tree on its own device in and out. ``pub`` are the
+        shards' published snapshots on a faulted program (None: fresh)."""
+        t = int(self.period_idx[r])
+        cats = [_cat_leaves(p) for p in params]
+        srcs = cats if pub is None else [_cat_leaves(q) for q in pub]
+        got = self.exchange(t, [self.local_sends(t, s, x) for s, x in enumerate(srcs)])
+        return [
+            _split_leaves(self.local_rows(t, s, srcs[s], got[s], r=r, cur=cats[s],
+                                          stale=pub is not None), params[s])
+            for s in range(len(params))
+        ]
+
+    def mix_at_local(self, params: list[PyTree], r: int,
+                     pub: list[PyTree] | None = None) -> list[PyTree]:
+        """``apply_local`` gated by the gossip cadence (cf. ``mix_at``)."""
+        if not self.gossip_mask[r]:
+            return params
+        return self.apply_local(params, r, pub)
 
     def alive_at(self, r) -> torch.Tensor:
         """Round ``r``'s (N,) alive mask on a faulted program (``r`` an int
@@ -725,7 +863,7 @@ class GossipEngine:
         self._bell: tuple[torch.Tensor, torch.Tensor] | None = None
         self._ell_np: tuple[np.ndarray, np.ndarray] | None = None
         self._shcsr: sparse.ShardedCSR | None = None
-        self._sh_ell: sparse.ShardedELL | None = None
+        self._sh_views: tuple | None = None  # (devices, per-shard views) of _shcsr
         self._colors: list | None = None
         # Edge colorings are fixed per schedule period: cached, so revisiting
         # a period (or mixing again within one) never recolors.
@@ -814,7 +952,7 @@ class GossipEngine:
         self._bell = None  # device blocked-ELL view of _csr, built on first use
         self._ell_np = None  # its host arrays
         self._shcsr = None  # sharded view of _csr, built on first use
-        self._sh_ell = None  # its device layout
+        self._sh_views = None  # its per-shard views on the shards' devices
         self._colors = self._coloring_for(period, g) if self.backend == "permute" else None
         return True
 
@@ -852,14 +990,19 @@ class GossipEngine:
         shards = mesh_mod.axis_size(mesh, self.node_axis)
         if self._shcsr is None or self._shcsr.shards != shards:
             self._shcsr = sparse.shard_csr(self.csr, shards)
-            self._sh_ell = None
+            self._sh_views = None
         return self._shcsr
 
-    def _sharded_view(self, mesh=None) -> sparse.ShardedELL:
+    def _sharded_view(self, mesh=None) -> tuple[sparse.ShardView, ...]:
+        """The current period's per-shard views, each on its shard's device
+        (cached; rebuilt on a new period or another mesh)."""
+        mesh = self.mesh if mesh is None else mesh
         shcsr = self.sharded_csr(mesh)
-        if self._sh_ell is None:
-            self._sh_ell = sparse.ShardedELL.from_csr(shcsr, self.device)
-        return self._sh_ell
+        devices = tuple(mesh.shard_devices(mesh_mod.axes_of(self.node_axis)))
+        if self._sh_views is None or self._sh_views[0] != devices:
+            layout = sparse.ShardedELL.from_csr(shcsr, self.device)
+            self._sh_views = (devices, layout.shard_views(list(devices)))
+        return self._sh_views[1]
 
     def w_at(self, round: int) -> torch.Tensor:
         self.refresh(round)
@@ -1031,7 +1174,7 @@ class GossipEngine:
             )
         if backend == "sparse_sharded":
             layout = self._sharded_view()
-            keep = torch.as_tensor(self.sharded_keep(round), device=self.device)
+            keep = torch.as_tensor(self.sharded_keep(round))
             return mix_sharded_sparse_faulted(
                 layout, params, pub, keep, alive, mesh=self.mesh, node_axis=self.node_axis,
                 halo_schedule=self.halo_schedule,
@@ -1176,8 +1319,7 @@ class GossipEngine:
         def dev(a: np.ndarray, dtype=torch.int64) -> torch.Tensor:
             return torch.as_tensor(a, dtype=dtype, device=self.device)
 
-        prog = MixingProgram(
-            kind="sparse_sharded",
+        stacked = dict(
             sh_halo=dev(st["halo"]),
             sh_local_src=dev(st["local_src"]), sh_local_dst=dev(st["local_dst"]),
             sh_ring_send=tuple(dev(a) for a in st["ring_send"]),
@@ -1185,6 +1327,21 @@ class GossipEngine:
             sh_ell_idx=dev(stack(0)), sh_ell_val=dev(stack(1), torch.float32),
             sh_ell_pos=dev(stack(2)),
             sh_widths=tuple(max(e[3][s] for e in ells) for s in range(shards)),
+        )
+        devices = mesh.shard_devices(mesh_mod.axes_of(self.node_axis))
+        views = tuple(
+            sparse.ShardedELL(
+                halo=stacked["sh_halo"][t], local_src=stacked["sh_local_src"][t],
+                local_dst=stacked["sh_local_dst"][t],
+                ring_send=tuple(a[t] for a in stacked["sh_ring_send"]),
+                ring_recv=tuple(a[t] for a in stacked["sh_ring_recv"]),
+                idx=stacked["sh_ell_idx"][t], val=stacked["sh_ell_val"][t],
+                pos=stacked["sh_ell_pos"][t], widths=stacked["sh_widths"], n=self.num_nodes,
+            ).shard_views(devices)
+            for t in range(len(csrs))
+        )
+        prog = MixingProgram(
+            kind="sparse_sharded", **stacked, sh_views=views,
             mesh=mesh, node_axis=self.node_axis, shards=shards,
             halo_schedule=self.halo_schedule,
             # Sized from the padded per-shard entry count, as the reference.
@@ -1204,7 +1361,15 @@ class GossipEngine:
             self.fault_trace.entry_keep(r, rows_g[t], cols_g[t], st["values"][t])
             for r, t in enumerate(common["period_idx"])
         ])
-        return self._attach_faults(prog, rounds, keep)
+        prog = self._attach_faults(prog, rounds, keep)
+        return dataclasses.replace(prog, sh_faults=tuple(
+            ShardFaults(
+                alive=prog.f_alive[:, s * blk:(s + 1) * blk].to(d).contiguous(),
+                keep=prog.f_keep[:, s].to(d).contiguous(),
+                delay=prog.f_delay[s * blk:(s + 1) * blk].to(d).contiguous(),
+            )
+            for s, d in enumerate(devices)
+        ))
 
     def __repr__(self) -> str:
         return (

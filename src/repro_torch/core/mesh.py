@@ -15,7 +15,13 @@ over the list of per-shard tensors: each moves a tensor to the receiving
 shard's device with an explicit ``.to(device)``. The same device may repeat
 (``Mesh([torch.device("cpu")] * 8, ("data",))``, or eight shards on one
 card): that is how S > 1 runs on one device, as the reference's tests run
-8 fake CPU devices.
+8 fake CPU devices. The shards' devices may also differ (a shard per
+card): the same code then copies between cards, and only in the
+collectives.
+
+``scatter`` and ``gather`` put a node-stacked tensor into per-shard slabs
+and back, at the start and end of a run that keeps its state sharded; they
+are not collectives of a round.
 """
 
 from __future__ import annotations
@@ -38,6 +44,8 @@ __all__ = [
     "psum_scatter",
     "ppermute",
     "same_device",
+    "scatter",
+    "gather",
 ]
 
 
@@ -135,6 +143,23 @@ def axis_index(mesh, node_axis, position: dict[str, int]) -> int:
     for a in axes_of(node_axis):
         idx = idx * mesh.shape[a] + int(position[a])
     return idx
+
+
+def scatter(x: torch.Tensor, devices: list[torch.device]) -> list[torch.Tensor]:
+    """A node-stacked tensor cut into one row block per shard, each a tensor
+    of its own on its shard's device (a copy, also where the device is
+    ``x``'s): the slabs a sharded run holds its state in."""
+    shards = len(devices)
+    if x.shape[0] % shards:
+        raise ValueError(f"node axis {x.shape[0]} not divisible by {shards} shards")
+    blk = x.shape[0] // shards
+    return [x[s * blk:(s + 1) * blk].to(d, copy=True) for s, d in enumerate(devices)]
+
+
+def gather(slabs: list[torch.Tensor], device: torch.device) -> torch.Tensor:
+    """Per-shard slabs back on one device, concatenated in shard order (the
+    inverse of ``scatter``)."""
+    return torch.cat([s.to(device) for s in slabs])
 
 
 def all_gather(slabs: list[torch.Tensor], device: torch.device, *, axis: int = 0) -> torch.Tensor:

@@ -62,6 +62,7 @@ __all__ = [
     "halo_wire_bytes",
     "shard_ell",
     "ShardedELL",
+    "ShardView",
 ]
 
 PyTree = Any
@@ -645,7 +646,8 @@ class ShardedELL:
     the (S, E) layout each slot holds (a faulted round's keep mask comes in
     that layout). ``widths`` are the slots shard s sums (the rest weigh 0).
     Built from a ``ShardedCSR`` (``from_csr``) or as a view of a fused
-    program's stacked periods."""
+    program's stacked periods; ``shard_views`` places each shard's part on
+    its shard's device."""
 
     halo: torch.Tensor
     local_src: torch.Tensor
@@ -691,3 +693,65 @@ class ShardedELL:
             idx=dev(idx), val=torch.as_tensor(val, device=device), pos=dev(pos),
             widths=widths, n=shcsr.shape[0],
         )
+
+    def shard_views(self, devices: list[torch.device]) -> tuple["ShardView", ...]:
+        """Each shard's part of the layout, copied once to its shard's device
+        (``devices[s]``), so a round reads it there without a copy."""
+        if len(devices) != self.shards:
+            raise ValueError(f"layout has {self.shards} shards, got {len(devices)} devices")
+        blk = self.rows_per_shard
+        dists = tuple(d for d, a in enumerate(self.ring_send, 1) if a.shape[-1])
+        views = []
+        for s, dev in enumerate(devices):
+            w = self.widths[s]
+            idx = self.idx[s, :, :w]
+            rows = s * blk + torch.arange(blk, device=idx.device)
+
+            def put(a: torch.Tensor, dev=dev) -> torch.Tensor:
+                return a.to(dev).contiguous()
+
+            views.append(ShardView(
+                shard=s, device=dev, idx=put(idx), val=put(self.val[s, :, :w]),
+                pos=put(self.pos[s, :, :w]), is_diag=put(self.halo[s][idx] == rows[:, None]),
+                halo=put(self.halo[s]), local_src=put(self.local_src[s]),
+                local_dst=put(self.local_dst[s]), ring_dists=dists,
+                ring_send=tuple(put(self.ring_send[d - 1][s]) for d in dists),
+                ring_recv=tuple(put(self.ring_recv[d - 1][s]) for d in dists),
+                n=self.n,
+            ))
+        return tuple(views)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardView:
+    """Shard ``shard``'s part of a ``ShardedELL``, on its own ``device``.
+
+    ``idx``/``val``/``pos`` (blk, w) are its ELL slots cut to the ``w``
+    slots it sums, and ``is_diag`` (blk, w) marks the slots whose source is
+    the row itself (a faulted round's self term). ``halo`` (H,) lists the
+    global rows its halo buffer holds; ``local_src``/``local_dst`` place its
+    own rows in the buffer; at each ring distance that moves rows
+    (``ring_dists``) it sends its rows ``ring_send`` to shard ``s + d`` and
+    fills slots ``ring_recv`` from shard ``s - d``."""
+
+    shard: int
+    device: torch.device
+    idx: torch.Tensor
+    val: torch.Tensor
+    pos: torch.Tensor
+    is_diag: torch.Tensor
+    halo: torch.Tensor
+    local_src: torch.Tensor
+    local_dst: torch.Tensor
+    ring_dists: tuple[int, ...]
+    ring_send: tuple[torch.Tensor, ...]
+    ring_recv: tuple[torch.Tensor, ...]
+    n: int
+
+    @property
+    def rows_per_shard(self) -> int:
+        return int(self.idx.shape[0])
+
+    @property
+    def halo_width(self) -> int:
+        return int(self.halo.shape[0])

@@ -22,16 +22,23 @@ fused path draws a whole chunk's up front (``chunk_indices``), the same
 draws round by round, because a seeded generator cannot run inside a CUDA
 graph capture: the captured round reads them from a static buffer and
 gathers its batches with ``batch_at``, as ``batches`` does.
+
+A run that keeps its nodes sharded over several devices stages the data
+per shard once (``shard_data``): the image bank and labels on each shard's
+device and the pools of the nodes it owns. The chunk's positions are still
+drawn on the loader's device, and each shard takes its nodes' rows of
+them, as the reference slices its replicated draws per slab.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable
 
 import numpy as np
 import torch
 
-__all__ = ["NodeLoader"]
+__all__ = ["NodeLoader", "ShardData"]
 
 # index_fn(round, steps) -> (steps, N, B) pool positions, each in [0, sizes[n]).
 IndexFn = Callable[[int, int], np.ndarray]
@@ -93,8 +100,43 @@ class NodeLoader:
         rows = torch.gather(self.parts, 1, idx)  # (N, B) dataset rows
         return self.x[rows], self.y[rows]
 
+    def shard_data(self, devices: list[torch.device]) -> list["ShardData"]:
+        """The dataset staged for a run sharded over ``devices`` (shard s
+        owns nodes ``[s*blk, (s+1)*blk)``): the bank and labels copied once
+        to each distinct device (the loader's own tensors on its device),
+        and each shard's rows of the pools."""
+        shards = len(devices)
+        if self.num_nodes % shards:
+            raise ValueError(f"{self.num_nodes} nodes not divisible by {shards} shards")
+        blk = self.num_nodes // shards
+        banks: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
+        out = []
+        for s, dev in enumerate(devices):
+            dev = torch.device(dev)
+            if dev not in banks:
+                banks[dev] = (self.x.to(dev), self.y.to(dev))
+            x, y = banks[dev]
+            out.append(ShardData(x, y, self.parts[s * blk:(s + 1) * blk].to(dev, copy=True)))
+        return out
+
     def batches(self, round: int, steps: int):
         """Yield ``steps`` (x (N, B, ...), y (N, B)) batches of one round."""
         idx = self.round_indices(round, steps)
         for s in range(steps):
             yield self.batch_at(idx[s])
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardData:
+    """One shard's view of a loader's dataset, on the shard's device: the
+    bank ``x``, labels ``y`` and its nodes' pools ``parts`` (blk, M)."""
+
+    x: torch.Tensor
+    y: torch.Tensor
+    parts: torch.Tensor
+
+    def batch_at(self, idx: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """The shard's (x (blk, B, ...), y (blk, B)) batch at its pool
+        positions ``idx`` (blk, B), as ``NodeLoader.batch_at``."""
+        rows = torch.gather(self.parts, 1, idx)
+        return self.x[rows], self.y[rows]

@@ -7,8 +7,8 @@ package, so every spec keeps its run id).
 - ``large_n``, ``large_n_smoke``: the scaling runs. ``large_n``'s six
   N=1024 runs and ``large_n_smoke``'s ``sparse`` run take the sparse
   backend; the ``sparse_sharded`` runs (``large_n``'s BA N=4096 and the
-  smoke's ``@rewire`` BA N=32) run over the trainer's default mesh, one
-  shard on the run's device.
+  smoke's ``@rewire`` BA N=32) run over the default mesh, one shard per
+  local card (one on the CPU), with the node state sharded end to end.
   Every run takes ``run_fused``.
 - ``churn_smoke``: fault injection: hub kills against leaf kills on BA N=16
   (``hub_kill_hurts_more``).
@@ -102,8 +102,8 @@ def _large_n() -> list[ExperimentSpec]:
         partitioner=["hub_focused", "edge_focused"],
         seed=[0],
     )
-    # N=4096 rides the sparse_sharded backend, over the trainer's default
-    # mesh: one shard on the run's device.
+    # N=4096 rides the sparse_sharded backend, over the default mesh: one
+    # shard per local card.
     specs += expand_grid(
         {**base, "backend": "sparse_sharded",
          "data": {"train_per_class": 5000, "test_per_class": 100}},

@@ -32,7 +32,9 @@ class Staged:
     ``stream`` is the capture stream (warm ``fn``'s operations up on it
     first: lazy initialisation such as cuBLAS workspaces and autograd's
     cannot happen during capture); graphs that never run at the same time
-    may share a memory ``pool``.
+    may share a memory ``pool``. Capture and replay run on ``device``
+    whatever card is current, so ``stream`` and ``pool`` must be that
+    card's (one of each a card).
     """
 
     def __init__(
@@ -55,7 +57,9 @@ class Staged:
         # (``torch.cuda.graph`` collects beforehand only when
         # ``torch.compiler.config.force_cudagraph_gc`` is set.)
         gc_was_enabled = gc.isenabled()
-        with torch.cuda.graph(graph, pool=pool, stream=stream):
+        # ``torch.cuda.graph`` and the caching allocator's capture pool read
+        # the current device, not the stream's: capture on ``device``.
+        with torch.cuda.device(device), torch.cuda.graph(graph, pool=pool, stream=stream):
             gc.disable()
             try:
                 fn()
@@ -64,11 +68,13 @@ class Staged:
                     gc.enable()
         self.launches = {k: v - before[k] for k, v in CAPTURED.items() if v != before[k]}
         self.graph = graph
+        self.device = device
 
     def __call__(self) -> None:
         if self.graph is None:
             self.fn()
             return
-        self.graph.replay()
+        with torch.cuda.device(self.device):
+            self.graph.replay()  # on the current stream of the capture's card
         for name, n in self.launches.items():
             LAUNCHES[name] += n

@@ -754,13 +754,17 @@ int sm_count() {
 // The f32 kernel: grid (query tiles, B * H).
 template <int HD>
 cudaError_t launch_f32(const Params& p, int64_t batch, cudaStream_t stream) {
-  static bool attr_set = false;  // once per kernel and process
+  // Once per kernel and device: the attribute is set on the current
+  // device's copy of the kernel only.
+  static bool attr_set[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
   constexpr int bytes = smem_floats<HD>() * static_cast<int>(sizeof(float));
-  if (!attr_set) {
+  if (!attr_set[dev]) {
     const cudaError_t err = cudaFuncSetAttribute(
         flash_attention_f32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;
-    attr_set = true;
+    attr_set[dev] = true;
   }
   const dim3 grid((p.s + BQ - 1) / BQ, static_cast<unsigned>(batch * p.h));
   flash_attention_f32_kernel<HD><<<grid, THREADS, bytes, stream>>>(p);
@@ -771,13 +775,15 @@ cudaError_t launch_f32(const Params& p, int64_t batch, cudaStream_t stream) {
 // (query tiles) x B x Hkv x (head chunks of the group).
 template <int HD, int NW>
 cudaError_t launch_bf16(const Params& p, int64_t batch, cudaStream_t stream) {
-  static bool attr_set = false;
+  static bool attr_set[64] = {};  // once per kernel and device, as above
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
   constexpr int bytes = (NW + 2 * STAGES) * tile_bytes<HD>() + 2 * STAGES * 8;
-  if (!attr_set) {
+  if (!attr_set[dev]) {
     const cudaError_t err = cudaFuncSetAttribute(
         flash_attention_bf16_kernel<HD, NW>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;
-    attr_set = true;
+    attr_set[dev] = true;
   }
   const int q_tiles = (p.s + BQ - 1) / BQ;
   const int chunks = (p.group + NW - 1) / NW;

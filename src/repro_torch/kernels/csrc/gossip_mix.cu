@@ -434,13 +434,17 @@ int sm_count() {
 template <typename T, int NB, int NW>
 cudaError_t launch_kernel(const float* w, const T* p, T* c, int64_t m, int64_t k, int64_t d,
                           int skip, int vec, int kpad, cudaStream_t stream) {
-  static int attr_bytes = 0;  // the largest dynamic shared memory allowed so far
+  // The largest dynamic shared memory allowed so far, per device: the
+  // attribute is set on the current device's copy of the kernel only.
+  static int attr_bytes[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
   const int bytes = smem_bytes<T, NW>(NB, kpad);
-  if (bytes > attr_bytes) {
+  if (bytes > attr_bytes[dev]) {
     const cudaError_t err = cudaFuncSetAttribute(
         gossip_mix_kernel<T, NB, NW>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;
-    attr_bytes = bytes;
+    attr_bytes[dev] = bytes;
   }
   const int64_t d_slabs = (d + NW * 64 - 1) / (NW * 64);
   const int64_t k_chunks = k > 0 ? (k + KC - 1) / KC : 1;

@@ -537,13 +537,22 @@ window_kernel(const int32_t* __restrict__ idx, const float* __restrict__ val,
   }
 }
 
-// Blocks a SM can hold of each kernel, and the SM count; set by
-// sparse_gossip_load(), before any launch (and so before any capture).
-int g_sms = 0;
-int g_occ[2][2][2] = {};  // [blocked][bf16][bulk]
+// Blocks a SM can hold of each kernel, and the SM count, per device; set
+// by sparse_gossip_load() on the current device, before any launch there
+// (and so before any capture): the shared-memory attribute it sets holds
+// for the current device's copy of each kernel only.
+constexpr int kMaxDevices = 64;
+int g_sms[kMaxDevices] = {};
+int g_occ[kMaxDevices][2][2][2] = {};  // [device][blocked][bf16][bulk]
+
+int current_device() {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) return -1;
+  return dev;
+}
 
 template <bool BLOCKED, typename T, bool BULK>
-int prepare(int rc) {
+int prepare(int rc, int dev) {
   auto* kernel = window_kernel<BLOCKED, T, BULK>;
   int err = static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem_bytes<T>())));
@@ -552,7 +561,7 @@ int prepare(int rc) {
     err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &blocks, kernel, THREADS, smem_bytes<T>()));
   if (err == 0 && blocks < 1) err = static_cast<int>(cudaErrorInvalidConfiguration);
-  g_occ[BLOCKED][sizeof(T) == 2][BULK] = blocks;
+  g_occ[dev][BLOCKED][sizeof(T) == 2][BULK] = blocks;
   return rc != 0 ? rc : err;
 }
 
@@ -560,14 +569,16 @@ template <bool BLOCKED, typename T>
 int launch(const int32_t* idx, const float* val, const T* p, T* c, int64_t n, int64_t k,
            int64_t d, cudaStream_t stream) {
   if (n <= 0 || d <= 0) return static_cast<int>(cudaSuccess);
-  if (g_sms == 0) return static_cast<int>(cudaErrorInitializationError);  // load first
+  const int dev = current_device();
+  if (dev < 0) return static_cast<int>(cudaErrorInvalidDevice);
+  if (g_sms[dev] == 0) return static_cast<int>(cudaErrorInitializationError);  // load first
   const bool bulk = (d * static_cast<int64_t>(sizeof(T))) % 16 == 0 &&
                     reinterpret_cast<uintptr_t>(p) % 16 == 0 &&
                     reinterpret_cast<uintptr_t>(c) % 16 == 0;
   const int64_t nslab = (d + SLAB - 1) / SLAB;
   if (n > 0x7fffffff - RANGE || nslab > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidConfiguration);
-  const int64_t target = static_cast<int64_t>(g_sms) * g_occ[BLOCKED][sizeof(T) == 2][bulk];
+  const int64_t target = static_cast<int64_t>(g_sms[dev]) * g_occ[dev][BLOCKED][sizeof(T) == 2][bulk];
   // Windows of as few rows as one wave of blocks needs (up to WROWS): a
   // narrow leaf takes narrow windows rather than leave SMs idle.
   int64_t want = (n * nslab + target - 1) / target;  // rows a window for one wave of blocks
@@ -627,29 +638,35 @@ extern "C" int sparse_gossip_blocked_bf16(const void* idx, const void* val, cons
                       n, kb, d, static_cast<cudaStream_t>(stream));
 }
 
-// Loads every kernel of this file into the current context without
-// launching one, allows each its dynamic shared memory and records how many
-// blocks a SM holds, so that a launch (and a CUDA graph capture of one)
-// needs no other runtime call. Call it before the first launch.
+// Loads every kernel of this file into the current device's context
+// without launching one, allows each its dynamic shared memory and records
+// how many blocks a SM holds, so that a launch on that device (and a CUDA
+// graph capture of one) needs no other runtime call. Call it on each device
+// before the first launch there.
 extern "C" int sparse_gossip_load() {
-  int dev = 0;
-  int rc = static_cast<int>(cudaGetDevice(&dev));
-  if (rc == 0) rc = static_cast<int>(cudaDeviceGetAttribute(&g_sms, cudaDevAttrMultiProcessorCount, dev));
-  rc = prepare<false, float, true>(rc);
-  rc = prepare<false, float, false>(rc);
-  rc = prepare<false, __nv_bfloat16, true>(rc);
-  rc = prepare<false, __nv_bfloat16, false>(rc);
-  rc = prepare<true, float, true>(rc);
-  rc = prepare<true, float, false>(rc);
-  rc = prepare<true, __nv_bfloat16, true>(rc);
-  rc = prepare<true, __nv_bfloat16, false>(rc);
+  const int dev = current_device();
+  if (dev < 0) return static_cast<int>(cudaErrorInvalidDevice);
+  int sms = 0;
+  int rc = static_cast<int>(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
+  rc = prepare<false, float, true>(rc, dev);
+  rc = prepare<false, float, false>(rc, dev);
+  rc = prepare<false, __nv_bfloat16, true>(rc, dev);
+  rc = prepare<false, __nv_bfloat16, false>(rc, dev);
+  rc = prepare<true, float, true>(rc, dev);
+  rc = prepare<true, float, false>(rc, dev);
+  rc = prepare<true, __nv_bfloat16, true>(rc, dev);
+  rc = prepare<true, __nv_bfloat16, false>(rc, dev);
+  if (rc == 0) g_sms[dev] = sms;  // the device counts as loaded only once all went well
   return rc;
 }
 
-// The dynamic shared memory of a kernel and the blocks a SM holds, as
-// sparse_gossip_load() recorded them (blocked, bf16, bulk: 0 or 1 each).
+// The dynamic shared memory of a kernel and the blocks a SM holds on the
+// current device, as sparse_gossip_load() recorded them (blocked, bf16,
+// bulk: 0 or 1 each).
 extern "C" int sparse_gossip_occupancy(int blocked, int bf16, int bulk, int* smem, int* blocks) {
+  const int dev = current_device();
+  if (dev < 0) return static_cast<int>(cudaErrorInvalidDevice);
   *smem = static_cast<int>(bf16 ? smem_bytes<__nv_bfloat16>() : smem_bytes<float>());
-  *blocks = g_occ[blocked != 0][bf16 != 0][bulk != 0];
-  return g_sms == 0 ? static_cast<int>(cudaErrorInitializationError) : 0;
+  *blocks = g_occ[dev][blocked != 0][bf16 != 0][bulk != 0];
+  return g_sms[dev] == 0 ? static_cast<int>(cudaErrorInitializationError) : 0;
 }

@@ -104,9 +104,9 @@ def build() -> Path:
 
 def open_library(path: Path) -> ctypes.CDLL:
     """Load a library built from a version of ``csrc/sparse_gossip.cu`` and
-    its kernels into the current CUDA context, without launching one, and
-    let it set their shared-memory limits and read the SM count (so a CUDA
-    graph capture can launch them). Raises on any CUDA error."""
+    its kernels into the current card's CUDA context, without launching
+    one, and let it set their shared-memory limits and read the SM count
+    (so a CUDA graph capture can launch them). Raises on any CUDA error."""
     args = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
@@ -116,17 +116,36 @@ def open_library(path: Path) -> ctypes.CDLL:
         "sparse_gossip_blocked_f32": args, "sparse_gossip_blocked_bf16": args,
         "sparse_gossip_load": [],
     })
-    rc = lib.sparse_gossip_load()
-    if rc != 0:
-        raise RuntimeError(f"sparse_gossip kernels failed to load: CUDA error {rc}")
+    lib.devices = set()  # the cards it is loaded on
+    _load_on(lib, torch.device("cuda", torch.cuda.current_device()))
     return lib
 
 
-def load() -> ctypes.CDLL:
-    """Build and load this file's library (``open_library``), once."""
+def _load_on(lib: ctypes.CDLL, device: torch.device) -> None:
+    """Load ``lib``'s kernels on ``device`` once (the kernels' shared-memory
+    limits and occupancy are the card's own)."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if device.index in lib.devices:
+        return
+    with torch.cuda.device(device):
+        rc = lib.sparse_gossip_load()
+    if rc != 0:
+        raise RuntimeError(f"sparse_gossip kernels failed to load on {device}: CUDA error {rc}")
+    lib.devices.add(device.index)
+
+
+def load(device: torch.device | None = None) -> ctypes.CDLL:
+    """Build and load this file's library (``open_library``), once, and
+    load its kernels on ``device`` too (a CUDA device; None: the current
+    card only). A launch loads them on its tensors' card first if need be;
+    a graph capture on a card should follow a ``load`` there."""
     global _lib
     if _lib is None:
         _lib = open_library(build())
+    if device is not None:
+        _load_on(_lib, device)
     return _lib
 
 
@@ -160,10 +179,11 @@ def _launch(name: str, idx, val, p, n: int, k: int) -> torch.Tensor:
         raise ValueError(f"{name} wants a contiguous P (reshape the leaf first)")
     idx, val = _layout_args(idx, val)
     lib = _lib or load()
+    dev = p.device
+    _load_on(lib, dev)
     suffix = "f32" if p.dtype is torch.float32 else "bf16"
     fn = getattr(lib, f"{name}_{suffix}")
     out = torch.empty_like(p)
-    dev = p.device
     args = (idx.data_ptr(), val.data_ptr(), p.data_ptr(), out.data_ptr(), n, k, p.shape[1])
     # The kernel launches on the CUDA runtime's current device: make it P's.
     if dev.index is None or dev.index == torch.cuda.current_device():

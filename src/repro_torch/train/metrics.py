@@ -2,7 +2,10 @@
 accuracy, confusion matrices and consensus distance.
 
 Each takes logits with leading axes (the node axis) and reduces over the
-batch axis only, as the reference's functions do under ``vmap``.
+batch axis only, as the reference's functions do under ``vmap``, so a run
+whose nodes are sharded over devices computes them a slab at a time and
+gathers the (N,) results; consensus needs the node mean first
+(``sharded_consensus_distance``).
 """
 
 from __future__ import annotations
@@ -11,13 +14,14 @@ from typing import Any
 
 import torch
 
+from repro_torch.core import mesh as mesh_mod
 from repro_torch.tree import tree_leaves
 
 PyTree = Any
 
 __all__ = [
-    "accuracy", "group_accuracy", "consensus_distance", "confusion_matrix",
-    "community_confusion",
+    "accuracy", "group_accuracy", "consensus_distance", "sharded_consensus_distance",
+    "confusion_matrix", "community_confusion",
 ]
 
 
@@ -45,15 +49,31 @@ def consensus_distance(params: PyTree) -> torch.Tensor:
     """(N,) per-node L2 distance to the node-mean model, ||theta_i - theta_bar||.
 
     An empty tree has no node axis to read N from, so it yields shape (0,).
+    The one-shard case of ``sharded_consensus_distance``, to the bit.
     """
-    total = None
-    for leaf in tree_leaves(params):
-        f = leaf.reshape(leaf.shape[0], -1).float()
-        sq = ((f - f.mean(dim=0, keepdim=True)) ** 2).sum(dim=1)
-        total = sq if total is None else total + sq
-    if total is None:
+    leaves = tree_leaves(params)
+    if not leaves:
         return torch.zeros((0,), dtype=torch.float32)
-    return total.sqrt()
+    return sharded_consensus_distance([params], leaves[0].device)
+
+
+def sharded_consensus_distance(slabs: list[PyTree], device: torch.device) -> torch.Tensor:
+    """``consensus_distance`` of a node axis held as per-shard slabs (shard
+    s's (blk, ...) tree on its own device, in node order): each leaf's node
+    mean is the shards' column sums added in shard order (``core.mesh.psum``)
+    over N, each shard then measures its own nodes, and only the (N,)
+    distances are gathered, to ``device``."""
+    per_shard = [tree_leaves(t) for t in slabs]
+    devices = [leaves[0].device for leaves in per_shard]
+    n = sum(int(leaves[0].shape[0]) for leaves in per_shard)
+    totals: list[torch.Tensor | None] = [None] * len(slabs)
+    for j in range(len(per_shard[0])):
+        flats = [leaves[j].reshape(leaves[j].shape[0], -1).float() for leaves in per_shard]
+        sums = mesh_mod.psum([f.sum(dim=0, keepdim=True) for f in flats], devices)
+        for s, (f, total) in enumerate(zip(flats, sums)):
+            sq = ((f - total / n) ** 2).sum(dim=1)
+            totals[s] = sq if totals[s] is None else totals[s] + sq
+    return mesh_mod.gather([t.sqrt() for t in totals], device)
 
 
 def confusion_matrix(logits: torch.Tensor, labels: torch.Tensor, num_classes: int) -> torch.Tensor:

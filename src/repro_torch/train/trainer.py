@@ -28,9 +28,17 @@ Two execution paths over the same numerics, as in the reference:
   run eagerly.
 
 The mesh backends (``sharded``, ``sparse_sharded``, ``permute``) mix over
-the engine's ``core.mesh.Mesh``; the local steps stay node-stacked over all
-N on the trainer's device (the reference's per-slab steps are the same
-arithmetic: no term couples two nodes), so the mesh must sit on that device.
+the engine's ``core.mesh.Mesh`` (default: one shard per local card, one on
+the CPU), whose shards may sit on several devices; the trainer's device,
+the home of ``params``, ``w`` and the metrics, must be one of them. ``run``
+keeps the state on that device, and each mix moves the slabs out and back.
+``run_fused`` on ``sparse_sharded`` keeps the state sharded end to end, as
+the reference's ``_scan_rounds_sharded``: each shard's slab of the params,
+momentum, CHOCO reference and fault state lives on its own device for the
+whole call and trains there, and the halo exchange of the mix is the only
+traffic between shards (``_ShardedFusedRounds``). Each local step is
+elementwise over nodes, so a slab's steps give the bits of the whole
+node axis's.
 
 ``faults=`` (core/faults.py) runs the faulted round on the dense, sparse and
 sparse_sharded backends: local steps, dead nodes (params and momentum) put back to their
@@ -73,6 +81,7 @@ from repro_torch.train.metrics import (
     confusion_matrix,
     consensus_distance,
     group_accuracy,
+    sharded_consensus_distance,
 )
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -85,30 +94,15 @@ __all__ = ["DecentralizedTrainer", "LMCohortTrainer", "RoundMetrics"]
 _FUSED_BACKENDS = ("dense", "sparse", "sparse_pallas", "sparse_sharded")
 
 
-def _own_mesh(mesh: mesh_mod.Mesh | None, backend: str, device) -> mesh_mod.Mesh | None:
-    """A trainer's default sparse_sharded mesh: one shard on its own device.
-    The engine's default has a shard per local card, which the trainers,
-    keeping every node's state on one device, cannot run on a machine with
-    several (``_check_mesh``)."""
-    if mesh is None and backend == "sparse_sharded":
-        return mesh_mod.local_mesh(device=device, shards=1)
-    return mesh
-
-
 def _check_mesh(engine: decavg.GossipEngine, device: torch.device) -> None:
-    """The trainers keep every node's state on one device, so a mesh backend
-    runs only over a mesh whose shards all sit on that device (it may repeat
-    it, to run S > 1 shards there)."""
+    """A mesh backend runs over a mesh that holds the trainer's device, the
+    home device where ``params``, ``w`` and the metrics live; its shards may
+    sit on other devices too (a shard per card), or repeat one."""
     if engine.mesh is None or engine.backend not in decavg._MESH_BACKENDS:
         return
-    devices = {str(d) for d in engine.mesh.device_set}
-    if len(devices) > 1:
-        raise NotImplementedError(
-            f"a mesh over several devices ({sorted(devices)}) is not supported by "
-            "the trainers yet: they keep every node's state on one device"
-        )
     if not any(mesh_mod.same_device(d, device) for d in engine.mesh.device_set):
-        raise ValueError(f"mesh on {devices.pop()}, trainer on {device}")
+        devices = sorted(str(d) for d in engine.mesh.device_set)
+        raise ValueError(f"mesh on {', '.join(devices)}, trainer on {device}")
 
 
 @dataclasses.dataclass
@@ -124,7 +118,8 @@ class RoundMetrics:
 
 class DecentralizedTrainer:
     """DecAvg over a model family (default: the paper's MLP), with every
-    node's state stacked on one device.
+    node's state stacked on its device (between ``run_fused`` calls on
+    ``sparse_sharded`` too).
 
     ``init_fn(generator)`` returns one node's params (default: ``init_mlp``
     with ``in_dim``/``hidden``/``num_classes``), drawn from a CPU
@@ -132,10 +127,11 @@ class DecentralizedTrainer:
     node's forward pass, mapped over the node axis with ``torch.func.vmap``
     (default: ``mlp_forward`` on the stacked params). ``params``
     (node-stacked tensors) replaces the initialisation, so tests can start
-    both packages from the same weights. ``mesh`` (a ``core.mesh.Mesh`` on
-    the trainer's device) is the engine's, for the mesh backends; without
-    one, sparse_sharded runs one shard on the trainer's device. ``device``
-    is where everything runs; None means CUDA (and raises without a card).
+    both packages from the same weights. ``mesh`` (a ``core.mesh.Mesh``
+    holding the trainer's device) is the engine's, for the mesh backends;
+    without one, sparse_sharded takes the engine's default mesh. ``device``
+    is the home of the state and metrics; None means CUDA (and raises
+    without a card).
     """
 
     def __init__(
@@ -167,8 +163,7 @@ class DecentralizedTrainer:
         self.engine = decavg.GossipEngine(
             graph, data_sizes=loader.sizes.astype(np.float64), backend=mix_impl,
             matrix=matrix, sparse_p_chunk=sparse_p_chunk, gossip_every=gossip_every,
-            faults=faults, seed=seed, mesh=_own_mesh(mesh, mix_impl, device),
-            n=len(loader.sizes), device=device,
+            faults=faults, seed=seed, mesh=mesh, n=len(loader.sizes), device=device,
         )
         self.faulted = self.engine.faults is not None
         if self.faulted and compress is not None:
@@ -256,26 +251,42 @@ class DecentralizedTrainer:
             self._sgd_step(self.params, self.momentum, x, y)
 
     @torch.no_grad()
-    def _eval(self, x_test: torch.Tensor, y_test: torch.Tensor):
-        logits = self._forward(self.params, x_test, shared=True)  # (N, T, C)
+    def _eval(self, params: PyTree, x_test: torch.Tensor, y_test: torch.Tensor,
+              groups: torch.Tensor | None):
+        logits = self._forward(params, x_test, shared=True)  # (N, T, C)
         accs = accuracy(logits, y_test)
-        gaccs = (
-            None if self.class_groups is None
-            else group_accuracy(logits, y_test, self.class_groups, self.num_groups)
-        )
+        gaccs = None if groups is None else group_accuracy(logits, y_test, groups, self.num_groups)
         return accs, gaccs, logits
 
-    def eval_round(self, r: int, x_test, y_test, t0: float) -> RoundMetrics:
-        """One evaluation pass over the current params as a RoundMetrics."""
-        x_t = torch.as_tensor(np.asarray(x_test), device=self.device)
-        y_t = torch.as_tensor(np.asarray(y_test), dtype=torch.int64, device=self.device)
-        accs, gaccs, _ = self._eval(x_t, y_t)
-        accs = accs.cpu().numpy()
+    def _test_set(self, x_test, y_test, device: torch.device):
+        return (torch.as_tensor(np.asarray(x_test), device=device),
+                torch.as_tensor(np.asarray(y_test), dtype=torch.int64, device=device),
+                None if self.class_groups is None else self.class_groups.to(device))
+
+    def eval_round(self, r: int, x_test, y_test, t0: float,
+                   slabs: list[PyTree] | None = None) -> RoundMetrics:
+        """One evaluation pass over the current params as a RoundMetrics.
+        ``slabs`` (a sharded run's per-shard param trees, each on its
+        shard's device) are evaluated where they live, and only the metrics
+        come to the trainer's device, in node order."""
+        parts = [self.params] if slabs is None else slabs
+        test_sets: dict[torch.device, tuple] = {}
+        accs, gaccs = [], []
+        for p in parts:
+            dev = tree_leaves(p)[0].device
+            if dev not in test_sets:
+                test_sets[dev] = self._test_set(x_test, y_test, dev)
+            a, g, _ = self._eval(p, *test_sets[dev])
+            accs.append(a)
+            gaccs.append(g)
+        acc = mesh_mod.gather(accs, self.device).cpu().numpy()
         with torch.no_grad():
-            cons = consensus_distance(self.params).cpu().numpy()
+            cons = (consensus_distance(self.params) if slabs is None
+                    else sharded_consensus_distance(slabs, self.device)).cpu().numpy()
         return RoundMetrics(
-            r, accs, float(accs.mean()), float(accs.std()),
-            group_acc=None if gaccs is None else gaccs.cpu().numpy(),
+            r, acc, float(acc.mean()), float(acc.std()),
+            group_acc=(None if self.class_groups is None
+                       else mesh_mod.gather(gaccs, self.device).cpu().numpy()),
             consensus=cons, wall_s=time.perf_counter() - t0,
         )
 
@@ -423,33 +434,36 @@ class DecentralizedTrainer:
         t0 = time.perf_counter()
         self._gossip_first(gossip_first)
         steps = self.loader.steps_per_epoch() * self.local_epochs
-        staged = _FusedRounds(self, program, steps)
+        sharded = program.kind == "sparse_sharded"
+        staged = (_ShardedFusedRounds if sharded else _FusedRounds)(self, program, steps)
         do_eval = x_test is not None
         ends = self._eval_rounds(rounds, eval_every) if do_eval else [rounds - 1]
         history: list[RoundMetrics] = []
         start = 0
         try:
             for end in ends:
-                idx = self.loader.chunk_indices(start, end - start + 1, steps)
+                staged.chunk(self.loader.chunk_indices(start, end - start + 1, steps))
                 for i, r in enumerate(range(start, end + 1)):
-                    staged.round(r, idx[i])
+                    staged.round(r, i)
                 start = end + 1
                 self._enter_period(end)
                 if do_eval:
-                    m = self.eval_round(end, x_test, y_test, t0)
+                    m = self.eval_round(end, x_test, y_test, t0,
+                                        slabs=staged.param_slabs() if sharded else None)
                     history.append(m)
                     if on_round is not None:
                         on_round(m)
                     self._report(m, verbose)
+            if sharded:
+                staged.gather()
         finally:
             staged.close()
         return history
 
     def confusion(self, x_test: np.ndarray, y_test: np.ndarray) -> np.ndarray:
         """(N, C, C) per-node row-normalized confusion matrices."""
-        x_t = torch.as_tensor(np.asarray(x_test), device=self.device)
-        y_t = torch.as_tensor(np.asarray(y_test), dtype=torch.int64, device=self.device)
-        _, _, logits = self._eval(x_t, y_t)
+        x_t, y_t, groups = self._test_set(x_test, y_test, self.device)
+        _, _, logits = self._eval(self.params, x_t, y_t, groups)
         return confusion_matrix(logits, y_t, self.num_classes).cpu().numpy()
 
 
@@ -532,7 +546,7 @@ class _FusedRounds:
                     x, y = tr.loader.batch_at(self.idx[s])
                     tr._sgd_step(params, momentum, x, y)
             if self.program.kind == "sparse_pallas":
-                sparse_gossip.load()
+                sparse_gossip.load(self.device)
             else:
                 self.program.apply_period(params, 0, r=self.r)
             if tr.compress is not None:
@@ -549,9 +563,13 @@ class _FusedRounds:
         self.local = None
         self.mix.clear()
 
-    def round(self, r: int, idx: torch.Tensor) -> None:
-        """Round ``r`` with batch positions ``idx`` (steps, N, B)."""
-        self.idx.copy_(idx)
+    def chunk(self, idx: torch.Tensor) -> None:
+        """The next chunk's batch positions, (rounds, steps, N, B)."""
+        self._chunk = idx
+
+    def round(self, r: int, i: int) -> None:
+        """Round ``r``, the chunk's ``i``-th."""
+        self.idx.copy_(self._chunk[i])
         self.r.fill_(r)
         if self.local is None:
             if self.stream is not None:
@@ -566,10 +584,233 @@ class _FusedRounds:
         self.mix[t]()
 
 
+class _Shard:
+    """One shard's part of a sharded ``run_fused`` call, all on its device:
+    its (blk, ...) slabs of the params, momentum and CHOCO reference, the
+    pre-round snapshots and straggler ring of a faulted run, its nodes'
+    data, its batch positions ``idx`` (steps, blk, B), the round ``r``, and
+    the static buffers of its half of the mix: ``cat`` (blk, P) its params
+    (the reference under CHOCO) side by side, ``pcat`` its published
+    snapshots (stragglers only), ``sends`` the rows it sends at each ring
+    distance and ``recv`` what it receives (the node axis under the
+    allgather)."""
+
+    def __init__(self, s: int, dev: torch.device, run: "_ShardedFusedRounds", steps: int,
+                 params: PyTree, momentum: PyTree, cref: PyTree | None):
+        tr, prog = run.trainer, run.program
+        self.s, self.dev = s, dev
+        self.params, self.momentum, self.cref = params, momentum, cref
+        self.data = run.data[s]
+        blk = run.blk
+        self.idx = torch.zeros((steps, blk, tr.loader.batch), dtype=torch.int64, device=dev)
+        self.r = torch.zeros((), dtype=torch.int64, device=dev)
+        self.p_in = self.o_in = self.hist = self.pcat = None
+        self.faults = prog.sh_faults[s] if prog.faulted else None
+        if prog.faulted:
+            self.p_in = tree_map(torch.empty_like, self.params)
+            self.o_in = tree_map(torch.empty_like, self.momentum)
+            if prog.delay_max > 0:
+                self.hist = faults_mod.init_history(self.params, prog.delay_max + 1)
+        mixed = self.params if self.cref is None else self.cref
+        width = sum(leaf[0].numel() for leaf in tree_leaves(mixed))
+        self.cat = torch.zeros((blk, width), dtype=torch.float32, device=dev)
+        if self.hist is not None:
+            self.pcat = torch.zeros_like(self.cat)
+        view = prog.sh_views[0][s]
+        if prog.ring:
+            self.sends = [torch.zeros((a.shape[0], width), device=dev) for a in view.ring_send]
+            self.recv = [torch.zeros((a.shape[0], width), device=dev) for a in view.ring_recv]
+        else:
+            self.sends = []
+            self.recv = [torch.zeros((tr.num_nodes, width), device=dev)]
+        self.graphs: dict[Any, Staged | None] = {}
+
+    @property
+    def src(self) -> torch.Tensor:
+        """The slab the halo moves: the published snapshots, else ``cat``."""
+        return self.cat if self.pcat is None else self.pcat
+
+    def outgoing(self) -> list[torch.Tensor]:
+        """This shard's part of the exchange (``MixingProgram.exchange``)."""
+        return self.sends if self.sends else [self.src]
+
+
+class _ShardedFusedRounds:
+    """The rounds of one ``run_fused`` call on ``sparse_sharded``, with the
+    node state sharded end to end (the reference's ``_scan_rounds_sharded``).
+
+    Each shard (``_Shard``) holds its nodes' slabs on its own device from
+    the first round to the last (``core.mesh.scatter``). A round is, shard
+    by shard, its local steps over its own slab and batch positions; then,
+    on gossip rounds, shard by shard its half of the mix up to the halo's
+    sends (``MixingProgram.local_sends``); the halo exchange
+    (``MixingProgram.exchange``: ``core.mesh``'s collectives, the round's
+    only traffic between shards), copied into the receivers' static
+    buffers; and shard by shard its mixed rows written back into its slabs
+    (``MixingProgram.local_rows``).
+
+    On the card each shard's piece runs eagerly on its device's capture
+    stream the first time (the lazy initialisation a warm-up would do), is
+    captured as a CUDA graph on that device the second time and replayed
+    after: one capture stream and one graph pool a device. The exchange
+    stays eager between the graphs. Replays and the exchange's copies go on
+    each device's current stream, and a copy between two cards orders
+    itself against both cards' current streams, so nothing else is needed
+    to order them; the host launches the shards' work one after another
+    without waiting, so on distinct cards it runs at the same time. The
+    trainer's params, momentum and CHOCO reference are gathered back on
+    its device once, when the call's rounds are done (``gather``).
+    """
+
+    def __init__(self, trainer: DecentralizedTrainer, program: decavg.MixingProgram, steps: int):
+        self.trainer = trainer
+        self.program = program
+        self.steps = steps
+        self.devices = program.shard_devices
+        self.blk = trainer.num_nodes // len(self.devices)
+        self.data = trainer.loader.shard_data(self.devices)
+        params = _scatter_tree(trainer.params, self.devices)
+        momentum = _scatter_tree(trainer.momentum, self.devices)
+        crefs = ([None] * len(self.devices) if trainer.cstate is None
+                 else _scatter_tree(trainer.cstate.reference, self.devices))
+        self.shards = [_Shard(s, d, self, steps, params[s], momentum[s], crefs[s])
+                       for s, d in enumerate(self.devices)]
+        cards = dict.fromkeys(d for d in self.devices if d.type == "cuda")
+        self.streams = {d: torch.cuda.Stream(d) for d in cards}
+        self.pools = {d: torch.cuda.graph_pool_handle() for d in cards}
+        self._chunk: list[torch.Tensor] = []
+
+    def param_slabs(self) -> list[PyTree]:
+        return [sh.params for sh in self.shards]
+
+    def chunk(self, idx: torch.Tensor) -> None:
+        """The next chunk's batch positions (rounds, steps, N, B), drawn on
+        the trainer's device: each shard's nodes' columns copied to it."""
+        b = self.blk
+        self._chunk = [idx[:, :, s * b:(s + 1) * b].to(sh.dev) for s, sh in enumerate(self.shards)]
+
+    def _local(self, sh: _Shard) -> None:
+        tr = self.trainer
+        if self.program.faulted:
+            _copy_into(sh.p_in, sh.params)
+            _copy_into(sh.o_in, sh.momentum)
+        for k in range(self.steps):
+            x, y = sh.data.batch_at(sh.idx[k])
+            tr._sgd_step(sh.params, sh.momentum, x, y)
+        if self.program.faulted:
+            with torch.no_grad():
+                alive = decavg._row(sh.faults.alive, sh.r)
+                _copy_into(sh.params, faults_mod.where_alive(alive, sh.params, sh.p_in))
+                _copy_into(sh.momentum, faults_mod.where_alive(alive, sh.momentum, sh.o_in))
+                if sh.hist is not None:
+                    faults_mod.push(sh.params, sh.hist, sh.r)
+
+    @torch.no_grad()
+    def _send(self, sh: _Shard, t: int) -> None:
+        tr = self.trainer
+        if sh.cref is not None:
+            _, state = compress_mod.compress(sh.params, compress_mod.CompressState(sh.cref),
+                                             k_frac=tr.compress)
+            _copy_into(sh.cref, state.reference)
+        sh.cat.copy_(decavg._cat_leaves(sh.params if sh.cref is None else sh.cref))
+        if sh.pcat is not None:
+            sh.pcat.copy_(decavg._cat_leaves(faults_mod.publish(sh.hist, sh.r, sh.faults.delay)))
+        for buf, rows in zip(sh.sends, self.program.local_sends(t, sh.s, sh.src)):
+            buf.copy_(rows)
+
+    def _exchange(self, t: int) -> None:
+        got = self.program.exchange(t, [sh.outgoing() for sh in self.shards])
+        for sh, rows in zip(self.shards, got):
+            for buf, x in zip(sh.recv, rows):
+                buf.copy_(x)
+
+    @torch.no_grad()
+    def _rows(self, sh: _Shard, t: int) -> None:
+        out = self.program.local_rows(t, sh.s, sh.src, sh.recv, r=sh.r, cur=sh.cat,
+                                      stale=sh.pcat is not None)
+        if sh.cref is None:
+            _copy_into(sh.params, decavg._split_leaves(out, sh.params))
+            return
+        mixed = decavg._split_leaves(out, sh.cref)
+        for p, m, ref in zip(tree_leaves(sh.params), tree_leaves(mixed), tree_leaves(sh.cref)):
+            p.copy_((p.float() + (m - ref)).to(p.dtype))
+
+    def _run(self, sh: _Shard, key, fn: Callable[[], None]) -> None:
+        _run_piece(sh.graphs, key, fn, sh.dev, self.streams.get(sh.dev), self.pools.get(sh.dev))
+
+    def round(self, r: int, i: int) -> None:
+        """Round ``r``, the chunk's ``i``-th."""
+        for sh, idx in zip(self.shards, self._chunk):
+            sh.idx.copy_(idx[i])
+            sh.r.fill_(r)
+        for sh in self.shards:
+            self._run(sh, "local", lambda sh=sh: self._local(sh))
+        if not self.program.gossip_mask[r]:
+            return
+        t = int(self.program.period_idx[r])
+        for sh in self.shards:
+            self._run(sh, ("send", t), lambda sh=sh: self._send(sh, t))
+        self._exchange(t)
+        for sh in self.shards:
+            self._run(sh, ("rows", t), lambda sh=sh: self._rows(sh, t))
+
+    def gather(self) -> None:
+        """The shards' state back into the trainer's tensors, in node order."""
+        tr, home = self.trainer, self.trainer.device
+        pairs = [(tr.params, [sh.params for sh in self.shards]),
+                 (tr.momentum, [sh.momentum for sh in self.shards])]
+        if tr.cstate is not None:
+            pairs.append((tr.cstate.reference, [sh.cref for sh in self.shards]))
+        for dst, parts in pairs:
+            for d, *slabs in zip(tree_leaves(dst), *(tree_leaves(p) for p in parts)):
+                d.copy_(mesh_mod.gather(slabs, home))
+
+    def close(self) -> None:
+        """Release the graphs now (see ``_FusedRounds.close``)."""
+        for sh in self.shards:
+            sh.graphs.clear()
+
+
+def _run_piece(graphs: dict, key, fn: Callable[[], None], device: torch.device,
+               stream: torch.cuda.Stream | None, pool, *, free_first: bool = False) -> None:
+    """Run the piece ``fn`` known as ``key`` on ``device``: eagerly on the
+    CPU. On a card, eagerly on the capture ``stream`` the first time (the
+    lazy initialisation a warm-up would do: cuBLAS workspaces, autograd,
+    the kernels' modules), captured as a CUDA graph in ``pool`` the second
+    time, and replayed after; ``graphs`` holds None for a piece that ran
+    once, then its graph. Eager and replayed runs launch the same kernels.
+    ``free_first`` returns the eager run's transients to the card before
+    the capture."""
+    if device.type != "cuda":
+        fn()
+        return
+    if key not in graphs:
+        graphs[key] = None
+        with torch.cuda.device(device):
+            current = torch.cuda.current_stream(device)
+            stream.wait_stream(current)
+            with torch.cuda.stream(stream):
+                fn()
+            current.wait_stream(stream)
+        return
+    if graphs[key] is None:
+        if free_first:
+            torch.cuda.synchronize(device)
+            torch.cuda.empty_cache()
+        graphs[key] = Staged(fn, device, stream=stream, pool=pool)
+    graphs[key]()
+
+
 def _copy_into(dst: PyTree, src: PyTree) -> None:
     """Copy ``src``'s leaves into ``dst``'s tensors (static buffers)."""
     for d, s in zip(tree_leaves(dst), tree_leaves(src)):
         d.copy_(s)
+
+
+def _scatter_tree(tree: PyTree, devices: list[torch.device]) -> list[PyTree]:
+    """A node-stacked tree as one tree of slabs a shard (``core.mesh.scatter``)."""
+    per_leaf = [mesh_mod.scatter(x, devices) for x in tree_leaves(tree)]
+    return [tree_unflatten(tree, [p[s] for p in per_leaf]) for s in range(len(devices))]
 
 
 # ---------------------------------------------------------------------------
@@ -618,8 +859,9 @@ class LMCohortTrainer:
     count advances). Checkpoints save ``(params, opt[, cstate])`` plus the
     step, and ``restore`` resumes bit-identically. As in the reference,
     ``cfg.opt_dtype`` is not read: the moments are f32. ``mesh`` is the
-    engine's, for the mesh backends, which mix in ``run`` only (without one,
-    sparse_sharded runs one shard on the trainer's device). An enc-dec
+    engine's, for the mesh backends, which mix in ``run`` only, the cohort
+    staying on the trainer's device (without one, sparse_sharded takes the
+    engine's default mesh). An enc-dec
     member is refused: the cohort's batches are tokens only, with no encoder
     frames (the reference's cohort stops at ``KeyError: 'frames'``).
     """
@@ -654,8 +896,7 @@ class LMCohortTrainer:
         self.data_kwargs = dict(data_kwargs or {})
         self.engine = decavg.GossipEngine(
             topology, backend=backend, matrix=matrix, gossip_every=gossip_every,
-            faults=faults, seed=seed, mesh=_own_mesh(mesh, backend, device),
-            n=self.num_nodes, device=device,
+            faults=faults, seed=seed, mesh=mesh, n=self.num_nodes, device=device,
         )
         if self.engine.num_nodes != self.num_nodes:
             raise ValueError(
@@ -1040,8 +1281,7 @@ class _LMFusedRounds:
             self.o_in = [torch.empty_like(x) for x in tree_leaves(trainer.opt_state)]
             if program.delay_max > 0:
                 self.hist = faults_mod.init_history(trainer.params, program.delay_max + 1)
-        self.graphs: dict[Any, Staged] = {}
-        self.ran: set = set()
+        self.graphs: dict[Any, Staged | None] = {}
         self.stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
         # The pieces run one after another on one stream and keep nothing
         # alive between runs, so their graphs can share one memory pool.
@@ -1075,26 +1315,9 @@ class _LMFusedRounds:
             tr._gossip(lambda q: prog.apply_period([q], t)[0])
 
     def _run(self, key, fn: Callable[[], None]) -> None:
-        if self.stream is None:
-            fn()
-            return
-        staged = self.graphs.get(key)
-        if staged is None:
-            if key not in self.ran:
-                self.ran.add(key)
-                current = torch.cuda.current_stream(self.device)
-                self.stream.wait_stream(current)
-                with torch.cuda.stream(self.stream):
-                    fn()
-                current.wait_stream(self.stream)
-                return
-            # The eager run's transients go back to the card before the
-            # capture takes its own pool.
-            torch.cuda.synchronize(self.device)
-            torch.cuda.empty_cache()
-            staged = self.graphs[key] = Staged(fn, self.device, stream=self.stream,
-                                               pool=self.pool)
-        staged()
+        # A full-width member: the eager run's transients go back to the
+        # card before the capture takes its own pool.
+        _run_piece(self.graphs, key, fn, self.device, self.stream, self.pool, free_first=True)
 
     def close(self) -> None:
         """Release the graphs now (see ``_FusedRounds.close``)."""

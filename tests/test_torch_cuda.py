@@ -413,8 +413,10 @@ def test_sparse_sharded_is_sparse_to_the_bit(cuda, shards, halo, topology_spec):
                                           "@targeted=hubs;straggler:frac=0.2,delay=2;drop:p_edge=0.1"])
 def test_fused_sharded_rounds_replay_as_cuda_graphs(cuda, monkeypatch, faults):
     """run_fused captures the 8-shard ring mix once per period slot as a CUDA
-    graph and replays it: loop, fused and the sparse backend's fused run
-    give the same bits (faulted too)."""
+    graph and replays it, with the node state held as 8 slabs: each
+    shard's local steps once, and its sends and rows once per period slot
+    that gossips twice; loop, fused and the sparse backend's fused run give the same bits
+    (faulted too)."""
     graphs = []
     orig = trainer_mod.Staged
 
@@ -433,30 +435,142 @@ def test_fused_sharded_rounds_replay_as_cuda_graphs(cuda, monkeypatch, faults):
             tr.engine.halo_schedule = "ring"
         graphs.clear()
         getattr(tr, path)(5)
-        if path == "run_fused":  # the local steps and the 3 period slots' mixes
-            assert len(graphs) == 4 and all(g.graph is not None for g in graphs)
+        # sparse: the local steps and the 3 period slots' mixes. Sharded: each
+        # shard's pieces are captured on their second use, so its local steps
+        # and the sends and rows of slots 0 and 1 (slot 2 gossips once, eagerly).
+        if path == "run_fused":
+            want = 8 + 8 * 2 * 2 if backend == "sparse_sharded" else 4
+            assert len(graphs) == want and all(g.graph is not None for g in graphs)
         runs[name] = tree_leaves(tr.params) + tree_leaves(tr.momentum)
     for a, b, c in zip(runs["loop"], runs["fused"], runs["sparse"]):
         assert torch.equal(a, b) and torch.equal(b, c)
 
 
-def test_trainer_refuses_a_mesh_over_two_cards(cuda):
-    """The trainers keep every node on one card: a mesh over two devices is
-    refused before any round runs (no second card is needed to see it)."""
+def test_trainer_refuses_a_mesh_without_its_card(cuda):
+    """The trainer's card is the home of its params and metrics: a mesh
+    that does not hold it is refused before any round runs (no second card
+    is needed to see it)."""
     tr, _, _ = _trainer(cuda, "sparse_sharded")
-    tr.engine.mesh = mesh.Mesh([torch.device("cuda", 0), torch.device("cuda", 1)], ("data",))
+    tr.engine.mesh = mesh.Mesh([torch.device("cuda", 1), torch.device("cuda", 2)], ("data",))
     for path in ("run", "run_fused"):
-        with pytest.raises(NotImplementedError, match="several devices"):
+        with pytest.raises(ValueError, match="mesh on cuda:1, cuda:2, trainer on"):
             getattr(tr, path)(2)
 
 
-def test_trainer_default_mesh_is_one_shard_on_its_card(cuda):
-    """Given no mesh, a sparse_sharded trainer runs one shard on its own card,
-    whatever the engine's default (a shard per card) would span."""
+def test_trainer_default_mesh_is_one_shard_per_card(cuda):
+    """Given no mesh, a sparse_sharded trainer takes the engine's default:
+    one shard per card, in card order; the params come home to its card."""
     tr, _, _ = _trainer(cuda, "sparse_sharded")
-    assert tr.engine.mesh.shape == {"data": 1}
-    assert all(mesh.same_device(d, cuda) for d in tr.engine.mesh.device_set)
+    n = torch.cuda.device_count()
+    assert tr.engine.mesh.shape == {"data": n}
+    assert tr.engine.mesh.shard_devices(("data",)) == [torch.device("cuda", i) for i in range(n)]
     tr.run_fused(2)
+    assert all(p.device == torch.device("cuda", 0) for p in tree_leaves(tr.params))
+
+
+def _two_cards() -> list[torch.device]:
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    return [torch.device("cuda", 0), torch.device("cuda", 1)]
+
+
+@pytest.mark.parametrize("faults", [None, "churn:p_leave=1.0,p_join=0.0,frac=0.25,start=2"
+                                          "@targeted=hubs;straggler:frac=0.2,delay=2;drop:p_edge=0.1"])
+def test_decavg_trainer_across_two_cards_matches_one(cuda, monkeypatch, faults):
+    """run_fused with 8 shards dealt over two cards (each slab trained on
+    its own card) against the same 8 shards on one card: within 1e-5 (each
+    shard's local steps run the same shapes on either)."""
+    cards = _two_cards()
+    seen = []
+    step = trainer_mod.DecentralizedTrainer._sgd_step
+
+    def sgd_step(self, params, momentum, x, y):
+        seen.append({p.device for p in tree_leaves(params)} | {x.device})
+        return step(self, params, momentum, x, y)
+
+    monkeypatch.setattr(trainer_mod.DecentralizedTrainer, "_sgd_step", sgd_step)
+    runs = {}
+    for name, devices in (("one", [cards[0]] * 8), ("two", [cards[s % 2] for s in range(8)])):
+        tr, x, y = _trainer(cuda, "sparse_sharded", "ws:n=64,k=4,beta=0.1@rewire=2",
+                            faults=faults)
+        tr.engine.mesh = mesh.Mesh(devices, ("data",))
+        seen.clear()
+        hist = tr.run_fused(5, eval_every=2, x_test=x, y_test=y)
+        steps = tr.loader.steps_per_epoch()
+        assert seen[:8 * steps:steps] == [{d} for d in devices]
+        runs[name] = (tree_leaves(tr.params) + tree_leaves(tr.momentum), hist)
+    for a, b in zip(runs["one"][0], runs["two"][0]):
+        assert a.device == b.device == cards[0]
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+    for a, b in zip(runs["one"][1], runs["two"][1]):
+        assert abs(a.mean_acc - b.mean_acc) <= 1e-5
+
+
+def test_lm_run_across_two_cards_matches_one(cuda):
+    """LMCohortTrainer.run keeps the cohort on its card and each mix moves
+    the slabs to the other card and back: sparse_sharded over two cards
+    gives sparse's params within 1e-5."""
+    cards = _two_cards()
+    want = _lm(cuda, backend="sparse", compress=None)
+    want.run(3)
+    got = _lm(cuda, backend="sparse_sharded", compress=None)
+    got.engine.mesh = mesh.Mesh(cards * 2, ("data",))
+    got.run(3)
+    for a, b in zip(tree_leaves(got.params), tree_leaves(want.params)):
+        assert a.device == cards[0]
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_every_kernel_launches_on_every_card(cuda, dtype):
+    """Each kernel on each card, the first launch there included: it sets
+    its shared-memory limits on that card, launches there and matches its
+    plain version (a launch on the wrong card, or limits set on card 0
+    only, fails here)."""
+    _two_cards()
+    tol = 3e-2 if dtype == torch.bfloat16 else 3e-5
+    for c in range(torch.cuda.device_count()):
+        dev = torch.device("cuda", c)
+        gen = torch.Generator(device=dev).manual_seed(c)
+        w = _w(130, seed=c).to(dev)
+        p = torch.randn(130, 4096, generator=gen, device=dev).to(dtype)
+        kernels, n = _layouts("ws:n=1024,k=8,beta=0.1", dev)
+        q = torch.randn(n, 640, generator=gen, device=dev).to(dtype)
+        x, k_, v = (torch.randn(1, 256, n, 64, generator=gen, device=dev).to(dtype)
+                    for n in (8, 2, 2))
+        reset_launches()
+        outs = {
+            "gossip_mix": (gm.gossip_mix(w, p), gm.gossip_mix_ref(w, p)),
+            **{name: (fn(idx, val, q), ref(idx, val, q))
+               for name, (fn, ref, idx, val) in kernels.items()},
+            "flash_attention": (fa.flash_attention(x, k_, v, causal=True),
+                                fa.flash_attention_ref(x, k_, v, causal=True)),
+        }
+        torch.cuda.synchronize(dev)
+        for name, (got, want) in outs.items():
+            assert LAUNCHES[name] == 1 and got.device == dev, (name, dev)
+            torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_permute_on_16_shards_over_the_cards(cuda):
+    """permute with its 16 shards dealt over the cards, through the
+    trainer's run, within 1e-5 of dense."""
+    cards = _two_cards()
+    rng = np.random.default_rng(0)
+    x = rng.random((16 * 12, 32), dtype=np.float32)
+    y = rng.integers(0, 10, size=16 * 12)
+    parts = [np.arange(12 * i, 12 * i + 12) for i in range(16)]
+    runs = {}
+    for backend in ("dense", "permute"):
+        m = None if backend == "dense" else mesh.Mesh([cards[i % 2] for i in range(16)], ("data",))
+        loader = NodeLoader(x, y, parts, batch_size=4, seed=1, device=cuda)
+        tr = trainer_mod.DecentralizedTrainer("ring:n=16", loader, lr=0.05, momentum=0.9,
+                                              mix_impl=backend, seed=0, in_dim=32,
+                                              hidden=(16,), mesh=m, device=cuda)
+        tr.run(3)
+        runs[backend] = tree_leaves(tr.params)
+    for a, b in zip(runs["permute"], runs["dense"]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
 
 
 # -- slice E on the card: faults and CHOCO through the captured graphs -----------

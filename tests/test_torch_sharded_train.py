@@ -6,7 +6,9 @@ bits loop and fused, and the same bits as the port's ``sparse`` backend; it
 is held to the reference trainer's ``sparse`` run within 1e-5 from the
 reference's injected weights and batch indices (the reference's own
 ``sparse_sharded`` loop-vs-fused runs disagree, so it is not the yardstick).
-The LM cohort's loop runs on ``sparse_sharded`` too. The engine's surface
+A mesh without the trainer's device is refused; given none, the trainers
+take the engine's default. The LM cohort's loop runs on ``sparse_sharded``
+too. The engine's surface
 mirrors the reference's own checks (tests/test_sparse.py).
 """
 
@@ -153,14 +155,14 @@ def test_matches_the_reference_sparse_trainer(data, faults, path):
 
 
 def test_trainer_refuses_a_mesh_it_cannot_hold(data):
-    """Every node's state lives on the trainer's device: a mesh over two
-    devices is refused (NotImplementedError), and so is a mesh on another
-    device, before any round runs."""
+    """The trainer's device is the home of its params and metrics: a mesh
+    that does not hold it is refused with a ValueError before any round
+    runs, whether it spans two devices or repeats one."""
     tr = _trainer(data, "sparse_sharded", TOPOLOGIES["static"])
     before = _state(tr)
     tr.engine.mesh = mesh.Mesh([torch.device("cuda", 0), torch.device("cuda", 1)], ("data",))
     for path in ("run", "run_fused"):
-        with pytest.raises(NotImplementedError, match="several devices"):
+        with pytest.raises(ValueError, match="mesh on cuda:0, cuda:1, trainer on cpu"):
             getattr(tr, path)(2)
     tr.engine.mesh = mesh.Mesh([torch.device("cuda", 0)] * 2, ("data",))
     with pytest.raises(ValueError, match="mesh on cuda:0"):
@@ -184,19 +186,20 @@ def test_other_mesh_backends_run_the_loop(data):
 
 
 @pytest.mark.parametrize("kind", ["decavg", "lm"])
-def test_trainer_default_mesh_is_one_shard_on_its_device(data, monkeypatch, kind):
-    """On a machine with two cards the engine's default mesh spans both, a
-    mesh the trainers refuse; a trainer given no mesh runs sparse_sharded on
-    one shard of its own device instead, with sparse's bits."""
-    two_cards = mesh.Mesh([torch.device("cuda", 0), torch.device("cuda", 1)], ("data",))
-    monkeypatch.setattr(decavg.GossipEngine, "_default_node_mesh", lambda self: two_cards)
+def test_trainer_takes_the_engines_default_mesh(data, monkeypatch, kind):
+    """Given no mesh, a trainer runs sparse_sharded over the engine's
+    default mesh (one shard per card on CUDA, one on the CPU), whatever it
+    spans: here 4 shards of the CPU, with sparse's bits."""
+    four = mesh.Mesh([CPU] * 4, ("data",))
+    monkeypatch.setattr(decavg.GossipEngine, "_default_node_mesh", lambda self: four)
     if kind == "decavg":
         got, want = (_trainer(data, b, TOPOLOGIES["rewire"]) for b in ("sparse_sharded", "sparse"))
         paths = ("run", "run_fused")
     else:
         got, want = _lm("sparse_sharded"), _lm("sparse")
         paths = ("run",)
-    assert got.engine.mesh.shape == {"data": 1} and got.engine.mesh.device_set == {CPU}
+    assert got.engine.mesh is four
+    assert decavg.GossipEngine("ring:n=8", backend="sparse_sharded", device="cpu").mesh is four
     for path in paths:
         getattr(got, path)(3)
         getattr(want, path)(3)
@@ -213,11 +216,12 @@ def _lm(backend, **kw):
                            backend=backend, compress=None, device="cpu", **kw)
 
 
-@pytest.mark.parametrize("shards", [1, 4])
+@pytest.mark.parametrize("shards", [1, 4, 8])
 def test_lm_loop_on_sparse_sharded_is_sparse(shards):
-    """The LM loop mixes leaf by leaf through engine.mix: sparse_sharded at
-    1 and 4 shards gives the sparse backend's bits, faulted too; run_fused
-    refuses it, as the reference's does."""
+    """The LM loop keeps the cohort on its device and mixes leaf by leaf
+    through engine.mix: sparse_sharded at 1, 4 and 8 shards gives the
+    sparse backend's bits, faulted too; run_fused refuses it, as the
+    reference's does."""
     for faults in (None, "churn:p_leave=0.3,p_join=0.3;drop:p_edge=0.2"):
         want = _lm("sparse", faults=faults)
         want.run(3)

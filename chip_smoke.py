@@ -2,6 +2,7 @@
 """Drive the PyTorch port (src/repro_torch) on one CUDA card, end to end.
 
     python3 chip_smoke.py [--baseline DIR] [--sharded-state] [--pipeline-train]
+                          [--pipeline-cards]
 
 ``--baseline DIR`` names a directory holding other versions of
 gossip_mix.cu, sparse_gossip.cu and flash_attention.cu (an earlier commit's,
@@ -10,6 +11,8 @@ say): phases 4, 8 and 11 then also time them, in turns with the current ones
 process. ``--sharded-state`` runs only phases 1, 2 and 9c (on a machine
 with several cards, the run across them). ``--pipeline-train`` runs only
 phase 21's train step, which the full run starts as a child process.
+``--pipeline-cards`` runs only phases 1, 2 and 21c (the pipeline decoders
+laid over every card).
 
 Phases, in order; any failure exits non-zero, and no phase catches and
 carries on:
@@ -223,6 +226,27 @@ carries on:
                2 microbatches of 2 x 128 tokens a member, W all 0.5, lr
                3e-5, 4 steps on one batch: the loss falls, peak memory
                printed;
+21c. cards  -- the pipeline decoders over every card (no kernel launch):
+               peer access between the cards; llama3.2-1b at full width in
+               f32, weights from seed 0, batch 8, cache 1024, 16 steps
+               teacher-forced with the plain serve step's tokens, each mesh
+               of phase 21 (auto (4, 1) and (4, 2) with the plain and the
+               int8 cache, manual (4, 2), (2, 8) and (pod 2, 2, 2)) and auto
+               and manual (2, 2) laid over the cards, the params and the
+               cache placed once from the host (serve.pipeline.place): the
+               same variant's tokens on one card, and its whole cache
+               gathered back bit for bit or within phase 21's bounds (the
+               largest gap printed); each card's rise in allocated memory
+               after placing, beside its blocks and cache slabs, nothing
+               else on it (512 B a slab), no card holding the whole model,
+               and where a card holds one position and the variant splits
+               what its specs split (auto (4, 1), manual (2, 2) on four
+               cards) no rise above launch.dryrun.argument_bytes; the bytes
+               a step moved between shards by kind (core.mesh.wire_bytes),
+               equal to the count from the rotation; then bf16 decode
+               tokens/s of auto and manual (4, 2) on one card and over the
+               cards. With one card, a line saying the run across cards
+               needs two or more (phase 21 ran the same placed path);
 22. dryrun   -- the production dry-run (launch.dryrun.run_one, traced on the
                ``meta`` device, no kernel): every arch at decode_32k and
                long_500k on both production meshes, and llama3.2-1b's
@@ -377,6 +401,11 @@ PIPE_TRAIN_STEPS = 4
 PIPE_TRAIN_MICROBATCHES = 2
 PIPE_TRAIN_ROWS = 4
 PIPE_TRAIN_SEQ = 128
+# Phase 21c: the pipeline decoders laid over every card; phase 21's meshes,
+# and (2, 2), which on four cards puts one position on each.
+PIPE_CARD_AUTO = ((4, 1), (4, 2), (2, 2))
+PIPE_CARD_MANUAL = (((4, 2), ("data", "model")), ((2, 8), ("data", "model")),
+                    ((2, 2, 2), ("pod", "data", "model")), ((2, 2), ("data", "model")))
 # Phase 22 (slice H): the dry-run's rows, traced on ``meta`` (the host), for
 # every arch at these shapes on both production meshes and llama3.2-1b's
 # train and prefill rows on (16, 16); then its argument bytes and outputs
@@ -586,6 +615,8 @@ def main() -> int:
                          "flash_attention.cu to time in turns with the current ones")
     ap.add_argument("--sharded-state", action="store_true",
                     help="run only phases 1, 2 and 9c (the sharded state, across every card)")
+    ap.add_argument("--pipeline-cards", action="store_true",
+                    help="run only phases 1, 2 and 21c (the pipeline decoders over every card)")
     ap.add_argument("--pipeline-train", action="store_true",
                     help="run only phase 21's build_train_step (the full run starts it as a "
                          "child process)")
@@ -646,6 +677,10 @@ def main() -> int:
     if args.sharded_state:
         sharded_state_path(smi)
         laps.lap("9c state")
+        return 0
+    if args.pipeline_cards:
+        pipeline_cards(smi)
+        laps.lap("21c cards")
         return 0
 
     # 3. kernel against plain, on the card
@@ -853,6 +888,8 @@ def main() -> int:
     # 21. slice G2: the step builders and the pipeline-parallel decoders
     pipeline_main_path(dev, smi)
     laps.lap("21 pipeline")
+    pipeline_cards(smi)
+    laps.lap("21c cards")
     # 22. slice H: the dry-run on meta, held to the card
     dryrun_rows()
     dryrun_card_check(dev, smi)
@@ -3219,6 +3256,295 @@ def pipeline_train_child(smi: str) -> None:
                       f"{res.returncode}; {smi}")
     if res.returncode != 0:
         fail(f"the build_train_step child exited {res.returncode}:\n{res.stderr[-3000:]}")
+
+
+# -- 21c. slice K: the pipeline decoders over every card ------------------------
+
+
+def pipe_wire(cfg, mesh, manual: bool, batch: int) -> dict:
+    """The bytes one pipeline step moves between shards, counted from the
+    rotation (tests/test_torch_pipeline_placed.py counts them the same
+    way): the activation hops and the emits' psum (one a lane: a TP rank in
+    the manual variant), the head's partial logits (auto: f32 psum over the
+    stages holding lm_head's rows; manual: each rank's vocabulary columns
+    gathered on rank 0) and, in the manual variant, the two psums of every
+    layer, the embedding's gather and the pods' tokens."""
+    from repro_torch.core import mesh as M
+
+    s_n, tp = mesh.shape["data"], mesh.shape["model"]
+    pods = mesh.shape.get("pod", 1) if manual else 1
+    lanes = tp if manual else 1
+    b_pod = batch // pods
+    isz = torch.tensor([], dtype=cfg.dtype()).element_size()
+    act = b_pod // s_n * cfg.d_model * isz
+    out = dict.fromkeys(M.WIRE_KINDS, 0)
+    out["collective-permute"] = pods * lanes * (2 * s_n - 1) * s_n * act if s_n > 1 else 0
+    out["all-reduce"] = pods * lanes * 2 * (s_n - 1) * s_n * act
+    if manual:
+        out["all-reduce"] += pods * (2 * s_n - 1) * cfg.num_groups * 4 * (tp - 1) * act
+        out["all-gather"] = pods * (tp - 1) * b_pod * (cfg.d_model + cfg.vocab_size // tp) * isz
+        out["all-gather"] += (pods - 1) * b_pod * 4
+    elif cfg.d_model % s_n == 0 and s_n > 1:
+        out["all-reduce"] += 2 * (s_n - 1) * batch * cfg.vocab_size * 4
+    return out
+
+
+def card_bytes(placed_trees, cards: int) -> tuple[list[int], list[int]]:
+    """(bytes, slabs) each card holds of the placed trees, every slab once."""
+    seen, held, count = set(), [0] * cards, [0] * cards
+    for pt in placed_trees:
+        for t in pt.tensors():
+            if id(t) not in seen and t.is_cuda:
+                seen.add(id(t))
+                held[t.device.index] += t.numel() * t.element_size()
+                count[t.device.index] += 1
+    return held, count
+
+
+def pipeline_cards(smi: str) -> None:
+    """Phase 21c: both pipeline decoders with their meshes laid over every
+    card, against the same variant on one card."""
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        phase("cards", "one card: the pipelines across cards need two or more (phase 21 ran the "
+                       "same placed path, every position on this card)")
+        return
+    peers = [f"{a}->{b} {torch.cuda.can_device_access_peer(a, b)}"
+             for a in range(n_cards) for b in range(n_cards) if a != b]
+    phase("cards", f"{n_cards} cards; peer access: " + ", ".join(peers))
+    cards = [torch.device("cuda", i) for i in range(n_cards)]
+    # Every block its size rounded up to 512 bytes, as in phase 22: a large
+    # block served from a cached segment would count its unsplit tail (up
+    # to 1 MiB) as allocated.
+    settings = (getattr(torch._C, "_accelerator_setAllocatorSettings", None)
+                or torch.cuda.memory._set_allocator_settings)
+    reset_launches()
+    settings("expandable_segments:True")
+    try:
+        host16 = pipeline_card_agreement(cards, smi)
+        pipeline_card_times(host16, cfgbase.get("llama3.2-1b"), cards, smi)
+    finally:
+        settings("expandable_segments:False")
+    if any(LAUNCHES.values()):
+        fail(f"phase 21c launched a hand-written kernel: {dict(LAUNCHES)}")
+
+
+def pipeline_card_agreement(cards, smi: str):
+    """Phase 21c, f32: each variant over the cards against one card, its
+    memory and its bytes a step; returns the bf16 params on the host."""
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.core import mesh as M
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import mesh as LM
+    from repro_torch.launch import sharding as SR
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as TF
+    from repro_torch.serve import pipeline as PL
+    from repro_torch.serve import pipeline_manual as PM
+    from repro_torch.tree import tree_leaves, tree_map
+
+    n_cards = len(cards)
+    dev = cards[0]
+    b, t_len = PIPE_BATCH, PIPE_CACHE
+    cfg = cfgbase.get("llama3.2-1b")
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+    free_card()
+    params = TF.init_params(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    host16 = tree_map(lambda t: t.cpu(), params)
+    params32 = tree_map(lambda t: t.float(), params)
+    del params
+    host32 = tree_map(lambda t: t.cpu(), params32)
+    model_bytes = sum(x.numel() * x.element_size() for x in tree_leaves(params32))
+    meta32 = TF.init_params(0, cfg32, device="meta")
+    serve = ST.build_serve_step(cfg32)
+    start = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, b)).to(
+        device=dev, dtype=torch.int32)
+    fed, cache, tok = [], TF.init_cache(cfg32, b, t_len, device=dev), start
+    for _ in range(PIPE_STEPS):
+        fed.append(tok)
+        tok, cache = serve(params32, tok, cache)
+    del cache
+    variants = [(f"auto {shape}", False, quant, shape, ("data", "model"))
+                for shape in PIPE_CARD_AUTO for quant in (False, True)]
+    variants += [(f"manual {dict(zip(axes, shape))}", True, True, shape, axes)
+                 for shape, axes in PIPE_CARD_MANUAL]
+
+    def new_cache(manual, quant, mesh, device):
+        if manual:
+            return PM.init_kv_cache(cfg32, b, t_len, tp=mesh.shape["model"], device=device)
+        return TF.init_cache(cfg32, b, t_len, kv_quant=quant, device=device)
+
+    def sync():
+        for c in cards:
+            torch.cuda.synchronize(c)
+
+    for name, manual, quant, shape, axes in variants:
+        label = f"{name} {'int8' if quant else 'plain'}"
+        one_mesh = LM.make_host_mesh(shape, axes, device=dev)
+        mesh = LM.make_host_mesh(shape, axes, devices=cards)
+        # the same variant on one card, global trees (phase 21's path)
+        step = PL.build_pipeline_step(cfg32, one_mesh, manual=manual)
+        want = new_cache(manual, quant, one_mesh, dev)
+        chosen = []
+        for t in fed:
+            nxt, want = step(params32, t, want)
+            chosen.append(nxt)
+        want_tok = torch.stack(chosen)
+        # over the cards: placed once from the host
+        free_card()
+        sync()
+        before = [torch.cuda.memory_allocated(c) for c in cards]
+        host_cache = new_cache(manual, quant, mesh, "cpu")
+        pp, pc = PL.place(cfg32, mesh, host32, host_cache, manual=manual)
+        del host_cache
+        sync()
+        rise = [torch.cuda.memory_allocated(c) - x for c, x in zip(cards, before)]
+        held, slabs = card_bytes((pp, pc), n_cards)
+        blocks_cache = [0] * n_cards
+        seen = set()
+        for t in [x for co in pp.coords for x in tree_leaves(pp.at(co)["blocks"])] \
+                + pc.tensors():
+            if t is not None and t.is_cuda and id(t) not in seen:
+                seen.add(id(t))
+                blocks_cache[t.device.index] += t.numel() * t.element_size()
+        gib = 2 ** 30
+        phase("cards", f"{label} over {n_cards} cards (devices "
+                       f"{[d.index for d in mesh.devices.ravel()]}): each card's rise after "
+                       f"placing " + ", ".join(
+                           f"cuda:{i} {r / gib:.4f} GiB (its slabs {h / gib:.4f}, blocks and "
+                           f"cache {bc / gib:.4f})"
+                           for i, (r, h, bc) in enumerate(zip(rise, held, blocks_cache)))
+                       + f"; the whole model {model_bytes / gib:.4f} GiB; {smi}")
+        for i, (r, h, n) in enumerate(zip(rise, held, slabs)):
+            if not (h <= r <= h + DRY_ALLOC_SLACK * n) or r >= model_bytes:
+                fail(f"{label}: cuda:{i} rose {r} B for {h} B of slabs ({n} slabs), the model "
+                     f"{model_bytes} B")
+        if mesh.size == n_cards and (manual or shape[1] == 1):
+            # each card holds one position and the variant splits what its
+            # specs split: no card above the dry-run's argument bytes
+            meta_cache = new_cache(manual, quant, mesh, "meta")
+            if manual:
+                specs = (PM.param_shardings(cfg32, mesh, meta32), PM.cache_shardings(mesh))
+            else:
+                _, p_sh, c_sh = PL.stage_shardings(cfg32, mesh, batch=b, kv_quant=quant)
+                specs = (p_sh, c_sh)
+            arg = DR.argument_bytes((meta32, meta_cache), specs, mesh)
+            leaves = len([x for x in tree_leaves((meta32, meta_cache)) if x is not None])
+            worst = max(rise)
+            phase("cards", f"{label}: largest rise {worst} B against the dry-run's per-device "
+                           f"argument bytes {arg} B (+{DRY_ALLOC_SLACK} B x {leaves} leaves)")
+            if worst > arg + DRY_ALLOC_SLACK * leaves:
+                fail(f"{label}: a card rose {worst} B, the dry-run says {arg} B")
+        for co in pc.coords:
+            at = mesh.devices[co]
+            if manual and pc.at(co)["k"].device != at:
+                fail(f"{label}: position {co}'s KV slab on {pc.at(co)['k'].device}, not {at}")
+        step = PL.build_pipeline_step(cfg32, mesh, manual=manual)
+        M.reset_wire_bytes()
+        sync()
+        t0 = time.perf_counter()
+        chosen = []
+        for t in fed:
+            nxt, pc = step(pp, t, pc)
+            chosen.append(nxt)
+        sync()
+        wall = time.perf_counter() - t0
+        wire = M.wire_bytes()
+        got_tok = torch.stack(chosen)
+        per_step = {k: v / PIPE_STEPS for k, v in wire.items()}
+        expect = pipe_wire(cfg32, mesh, manual, b)
+        got = SR.global_view(pc, dev)
+        pairs = [(g, w) for g, w in zip(tree_leaves(got), tree_leaves(want)) if w is not None]
+        bits = all(torch.equal(g, w) for g, w in pairs)
+        mix_g = got if manual else got["layer0"]["mixer"]
+        mix_w = want if manual else want["layer0"]["mixer"]
+        vals, scales = kv_gap(mix_g, mix_w)
+        index_ok = torch.equal(mix_g["index"], mix_w["index"])
+        same_tok = torch.equal(got_tok, want_tok)
+        phase("cards", f"{label} over the cards: {PIPE_STEPS} steps in {wall:.2f} s; tokens "
+                       f"equal the one-card run's {same_tok}; whole cache bit for bit {bits}, "
+                       f"largest gap {'int8 levels' if quant else 'max abs'} {vals:.3e}, scales "
+                       f"rel {scales:.3e}, index equal {index_ok}; bytes a step between shards "
+                       + ", ".join(f"{k} {v:.0f}" for k, v in per_step.items())
+                       + f" (the rotation's count {expect}); {smi}")
+        tol = 1.0 if quant else 1e-5
+        if not (same_tok and index_ok and vals <= tol and scales <= 1e-5):
+            fail(f"{label}: over the cards tokens {same_tok}, cache {vals} (tol {tol}), scales "
+                 f"{scales}, index {index_ok}")
+        if wire != {k: v * PIPE_STEPS for k, v in expect.items()}:
+            fail(f"{label}: moved {wire} over {PIPE_STEPS} steps, the rotation says {expect} "
+                 f"a step")
+        del pp, pc, got, want
+        free_card()
+    del params32, host32
+    free_card()
+    return host16
+
+
+def pipeline_card_times(host16, cfg, cards, smi: str) -> None:
+    """Phase 21c, bf16: decode tokens/s of auto and manual (4, 2) on one
+    card (global trees) and over the cards (placed once), each alone,
+    free-running from the same tokens over 16 steps after 2."""
+    from repro_torch.core import mesh as M
+    from repro_torch.launch import mesh as LM
+    from repro_torch.models import transformer as TF
+    from repro_torch.serve import pipeline as PL
+    from repro_torch.serve import pipeline_manual as PM
+    from repro_torch.tree import tree_map
+
+    b, t_len, dev = PIPE_BATCH, PIPE_CACHE, cards[0]
+    start = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, b)).to(
+        device=dev, dtype=torch.int32)
+    on_card = tree_map(lambda t: t.to(dev), host16)
+    for manual in (False, True):
+        name = f"{'manual' if manual else 'auto'} (4, 2)"
+        toks = {}
+        for where in ("one card", f"{len(cards)} cards"):
+            one = where == "one card"
+            mesh = (LM.make_host_mesh((4, 2), device=dev) if one
+                    else LM.make_host_mesh((4, 2), devices=cards))
+            step = PL.build_pipeline_step(cfg, mesh, manual=manual)
+
+            def fresh():
+                d = dev if one else "cpu"
+                cache = (PM.init_kv_cache(cfg, b, t_len, tp=2, device=d) if manual
+                         else TF.init_cache(cfg, b, t_len, device=d))
+                if one:
+                    return on_card, cache
+                return PL.place(cfg, mesh, host16, cache, manual=manual)
+
+            params, cache = fresh()
+            tok = start
+            for _ in range(2):  # warm-up
+                tok, cache = step(params, tok, cache)
+            params, cache = fresh()
+            tok, out = start, []
+            for c in cards:
+                torch.cuda.synchronize(c)
+            M.reset_wire_bytes()
+            t0 = time.perf_counter()
+            for _ in range(PIPE_STEPS):
+                tok, cache = step(params, tok, cache)
+                out.append(tok)
+            for c in cards:
+                torch.cuda.synchronize(c)
+            wall = time.perf_counter() - t0
+            toks[where] = torch.stack(out)
+            wire = sum(M.wire_bytes().values()) / PIPE_STEPS
+            phase("cards", f"{name}, bf16, batch {b}, cache {t_len}, {where}: {PIPE_STEPS} steps "
+                           f"in {wall * 1e3:.2f} ms, decode {b * PIPE_STEPS / wall:.1f} tokens/s, "
+                           f"{wall * 1e3 / PIPE_STEPS:.2f} ms a step, {wire:.0f} B a step between "
+                           f"shards; {smi}")
+            del params, cache
+            free_card()
+        share = float((toks["one card"] == toks[f"{len(cards)} cards"]).float().mean())
+        phase("cards", f"{name}, bf16: tokens shared between one card and the cards "
+                       f"(free-running) {share:.4f}")
+    del on_card
+    free_card()
 
 
 def dryrun_rows() -> None:

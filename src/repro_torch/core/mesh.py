@@ -22,6 +22,18 @@ collectives.
 ``scatter`` and ``gather`` put a node-stacked tensor into per-shard slabs
 and back, at the start and end of a run that keeps its state sharded; they
 are not collectives of a round.
+
+The collectives keep a tally of the bytes they move from one shard to a
+different shard (``wire_bytes``, ``reset_wire_bytes``), by shard index
+whatever the devices are, so it reads the same on one device as across
+cards. It is the port's run-time stand-in for the reference's count of
+collective bytes in compiled HLO (``analysis.collective_wire_bytes`` over
+``launch/hlo_walk.py``, which parse XLA's HLO text and are not ported),
+keyed by the same kinds: ``all-gather``, ``all-reduce`` (``psum``),
+``reduce-scatter`` (``psum_scatter``) and ``collective-permute``
+(``ppermute``). The reference counts one device's wire; the tally sums over
+the shards what the port's own schedule moves: ``psum`` adds the parts on
+shard 0 and hands the sum back, 2 (n - 1) parts' bytes for n shards.
 """
 
 from __future__ import annotations
@@ -46,7 +58,28 @@ __all__ = [
     "same_device",
     "scatter",
     "gather",
+    "WIRE_KINDS",
+    "wire_bytes",
+    "reset_wire_bytes",
 ]
+
+WIRE_KINDS = ("all-gather", "all-reduce", "reduce-scatter", "collective-permute")
+_WIRE = dict.fromkeys(WIRE_KINDS, 0)
+
+
+def wire_bytes() -> dict[str, int]:
+    """Bytes the collectives moved between shards since the last reset, by
+    kind."""
+    return dict(_WIRE)
+
+
+def reset_wire_bytes() -> None:
+    for kind in WIRE_KINDS:
+        _WIRE[kind] = 0
+
+
+def _tally(kind: str, t: torch.Tensor, times: int = 1) -> None:
+    _WIRE[kind] += times * t.numel() * t.element_size()
 
 
 def _canonical(device: torch.device | str) -> torch.device:
@@ -162,10 +195,16 @@ def gather(slabs: list[torch.Tensor], device: torch.device) -> torch.Tensor:
     return torch.cat([s.to(device) for s in slabs])
 
 
-def all_gather(slabs: list[torch.Tensor], device: torch.device, *, axis: int = 0) -> torch.Tensor:
+def all_gather(slabs: list[torch.Tensor], device: torch.device, *, axis: int = 0,
+               shard: int | None = None) -> torch.Tensor:
     """Every shard's slab on ``device``, concatenated in shard order along
     tensor axis ``axis``: the full node axis by default, a feature axis for
-    ``jax.lax.all_gather(..., axis=axis, tiled=True)``."""
+    ``jax.lax.all_gather(..., axis=axis, tiled=True)``. ``shard``: the
+    receiving shard, whose own slab does not cross; without it every slab is
+    tallied."""
+    for i, s in enumerate(slabs):
+        if i != shard:
+            _tally("all-gather", s)
     return torch.cat([s.to(device) for s in slabs], dim=axis)
 
 
@@ -175,7 +214,9 @@ def psum(parts: list[torch.Tensor], devices: list[torch.device]) -> list[torch.T
     one device share the one result tensor."""
     acc = parts[0].to(devices[0])
     for p in parts[1:]:
+        _tally("all-reduce", p)
         acc = acc + p.to(devices[0])
+    _tally("all-reduce", acc, len(devices) - 1)
     return [acc.to(d) for d in devices]
 
 
@@ -189,6 +230,7 @@ def psum_scatter(parts: list[torch.Tensor], devices: list[torch.device]) -> list
         acc = parts[0][i * blk:(i + 1) * blk].to(dev, copy=True)
         for p in parts[1:]:
             acc.add_(p[i * blk:(i + 1) * blk].to(dev))
+        _tally("reduce-scatter", acc, shards - 1)
         out.append(acc)
     return out
 
@@ -201,6 +243,8 @@ def ppermute(
     nothing gets zeros, as ``jax.lax.ppermute`` gives."""
     got: list[torch.Tensor | None] = [None] * len(slabs)
     for src, dst in pairs:
+        if src != dst:
+            _tally("collective-permute", slabs[src])
         got[dst] = slabs[src].to(devices[dst])
     return [
         g if g is not None else torch.zeros_like(slabs[i], device=devices[i])

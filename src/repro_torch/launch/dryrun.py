@@ -170,7 +170,10 @@ def build_decode(cfg, mesh, shape):
 def build_decode_pipeline(cfg, mesh, shape):
     """The pipeline serving layout: `data` axis = pipeline stages (weights
     and cache stay put, activations rotate), manual megatron TP over
-    `model`, per-rank int8 KV-head cache (``serve/pipeline_manual.py``)."""
+    `model`, per-rank int8 KV-head cache (``serve/pipeline_manual.py``).
+    The step gets the global trees on ``meta``, where every mesh position
+    lies, and places them itself (``launch.sharding.place``: views), the
+    placement a caller on cards makes once."""
     from repro_torch.serve import pipeline_manual as PM
     from repro_torch.serve.pipeline import build_pipeline_step
 

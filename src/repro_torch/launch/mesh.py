@@ -1,10 +1,15 @@
 """Named meshes: the production layouts and small host meshes.
 
 The port of ``repro/launch/mesh.py``. A mesh is a ``core.mesh.Mesh``: an
-array of ``torch.device`` with named axes, where one device may repeat, so
-the reference's 256- and 512-device layouts are laid over one card (or the
-CPU, or the ``meta`` device of the dry-run) and the slab of every mesh
-position is a view of the global tensor.
+array of ``torch.device`` with named axes, where one device may repeat. By
+default every position is one device, so the reference's 256- and
+512-device layouts are laid over one card (or the CPU, or the ``meta``
+device of the dry-run) and the slab of every mesh position is a view of the
+global tensor. Given ``devices``, the positions are laid over those cards
+as the reference's ``jax.make_mesh`` lays them over the local devices:
+row-major, the leading axes (``pod``, ``data``) outermost, and where there
+are fewer cards than positions each card holds a run of consecutive
+positions, so the ranks of one stage share a card before stages do.
 
 ``H100`` holds the per-card rates that ``analysis.Roofline.finalize``
 divides by, for one NVIDIA H100 SXM5 (700 W) from NVIDIA's H100 Tensor Core
@@ -21,6 +26,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 from repro_torch.core.mesh import Mesh
 from repro_torch.device import resolve_device
@@ -54,25 +60,41 @@ class Hardware(NamedTuple):
 H100 = Hardware(peak_flops_bf16=989.4e12, hbm_bw=3.35e12, link_bw=50e9)
 
 
-def _repeated(shape: tuple[int, ...], axes: tuple[str, ...], device) -> Mesh:
-    devices = np.empty(tuple(shape), dtype=object)
-    devices.fill(resolve_device(device))
-    return Mesh(devices, tuple(axes))
+def _laid(shape: tuple[int, ...], axes: tuple[str, ...], device, devices) -> Mesh:
+    """Position k (row-major) on card k * n // positions of the first n =
+    min(len(devices), positions) of ``devices``; every position on
+    ``device`` (None: the card) when ``devices`` is None."""
+    positions = int(np.prod(shape))
+    if devices is None:
+        flat = [resolve_device(device)] * positions
+    else:
+        if device is not None:
+            raise ValueError("give device or devices, not both")
+        devices = [torch.device(d) for d in devices]
+        if not devices:
+            raise ValueError("devices is empty")
+        n = min(len(devices), positions)
+        flat = [devices[k * n // positions] for k in range(positions)]
+    grid = np.empty(positions, dtype=object)
+    grid[:] = flat
+    return Mesh(grid.reshape(tuple(shape)), tuple(axes))
 
 
-def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
+def make_production_mesh(*, multi_pod: bool = False, device=None, devices=None) -> Mesh:
     """(16, 16) ``("data", "model")``, or (2, 16, 16) ``("pod", "data",
     "model")`` with ``multi_pod``, every position on ``device`` (None: the
-    card)."""
+    card), or laid over the cards ``devices``."""
     shape = MULTI_POD_SHAPE if multi_pod else SINGLE_POD_SHAPE
     axes = MULTI_POD_AXES if multi_pod else SINGLE_POD_AXES
-    return _repeated(shape, axes, device)
+    return _laid(shape, axes, device, devices)
 
 
-def make_host_mesh(shape=(2, 2), axes=("data", "model"), device=None) -> Mesh:
+def make_host_mesh(shape=(2, 2), axes=("data", "model"), device=None, *, devices=None) -> Mesh:
     """A small mesh with ``device`` (None: the card) at every position, as
-    ``core.mesh.local_mesh(shards=)`` builds a 1-D one."""
-    return _repeated(tuple(shape), tuple(axes), device)
+    ``core.mesh.local_mesh(shards=)`` builds a 1-D one, or laid over the
+    cards ``devices`` (for example ``(4, 2)`` over four cards puts stage s on
+    ``cuda:s``, both its ranks there)."""
+    return _laid(tuple(shape), tuple(axes), device, devices)
 
 
 def node_axes_for(num_nodes: int, mesh) -> tuple[str, ...]:

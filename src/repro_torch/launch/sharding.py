@@ -8,6 +8,11 @@ for each tensor dimension is a mesh axis name, a tuple of names, or None
 (replicated). Where the reference returns a ``NamedSharding`` the port
 returns the spec alone: the mesh is the caller's. ``local_slab`` cuts a
 global tensor into one mesh position's slab by such a spec (a view).
+``place`` is the counterpart of ``jax.device_put(tree, NamedSharding(mesh,
+spec))``: every mesh position's slab of every leaf, held on that position's
+device (a view where that device is the tree's own, one tensor for the
+positions of one card that hold the same slab); ``global_view`` rebuilds
+the global tree from the slabs.
 
 Policy (the reference's):
 - node axis (leading, training only): sharded over the longest prefix of
@@ -26,10 +31,12 @@ from __future__ import annotations
 
 from typing import Any
 
+import itertools
+
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.mesh import axes_of, axis_index, axis_size
+from repro_torch.core.mesh import axes_of, axis_index, axis_size, same_device
 from repro_torch.launch.mesh import node_axes_for
 from repro_torch.tree import tree_map_with_path
 
@@ -42,6 +49,10 @@ __all__ = [
     "decode_shardings",
     "prefill_shardings",
     "local_slab",
+    "map_specs",
+    "Placed",
+    "place",
+    "global_view",
 ]
 
 PyTree = Any
@@ -272,3 +283,102 @@ def local_slab(x: torch.Tensor, spec, mesh, position: dict[str, int]) -> torch.T
         blk = x.shape[dim] // n
         x = x.narrow(dim, axis_index(mesh, axes, position) * blk, blk)
     return x
+
+
+def map_specs(fn, tree: PyTree, specs: PyTree, _path: tuple = ()) -> PyTree:
+    """``fn(path, leaf, spec)`` over a tree and its tree of specs, whose
+    ``PartitionSpec`` leaves are tuples and so are not walked into; None
+    (an empty subtree) stays None."""
+    if tree is None:
+        return None
+    if isinstance(specs, PartitionSpec):
+        return fn(_path, tree, specs)
+    if isinstance(tree, dict):
+        return {k: map_specs(fn, tree[k], specs[k], _path + (k,)) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return [map_specs(fn, t, s, _path + (i,)) for i, (t, s) in enumerate(zip(tree, specs))]
+    raise TypeError(f"{'/'.join(map(str, _path))}: a {type(tree).__name__} against {specs!r}")
+
+
+def _blocks(spec, mesh, position: dict[str, int]) -> tuple:
+    """Which block of each sharded dimension ``position`` holds."""
+    return tuple(axis_index(mesh, axes_of(e), position) if e is not None else None
+                 for e in spec)
+
+
+class Placed:
+    """A tree placed over a mesh: ``at(coord)`` is the tree of slabs that the
+    mesh position ``coord`` (a tuple of indices, in axis order, one of
+    ``coords``) holds, each on that position's device. ``specs`` and
+    ``mesh`` are those it was placed by."""
+
+    def __init__(self, mesh, specs: PyTree, leaves: PyTree, coords: list[tuple]):
+        self.mesh, self.specs, self._leaves = mesh, specs, leaves
+        self.coords = coords
+        self._trees = {c: map_specs(lambda _p, per, _s, i=i: per[i], leaves, specs)
+                       for i, c in enumerate(coords)}
+
+    def at(self, coord: tuple) -> PyTree:
+        return self._trees[tuple(coord)]
+
+    def tensors(self) -> list[torch.Tensor]:
+        """Every distinct slab once."""
+        seen: dict[int, torch.Tensor] = {}
+        map_specs(lambda _p, per, _s: [seen.setdefault(id(t), t) for t in per],
+                  self._leaves, self.specs)
+        return list(seen.values())
+
+
+def _coords(mesh) -> list[tuple]:
+    return list(itertools.product(*(range(n) for n in mesh.devices.shape)))
+
+
+def place(tree: PyTree, specs: PyTree, mesh) -> Placed:
+    """Every mesh position's ``local_slab`` of every leaf of the global
+    ``tree`` under ``specs``, on the position's device. Where that device is
+    the leaf's own the slab is a view of it (writes go through); elsewhere it
+    is a copy, and positions of one device that hold the same block (the
+    spec replicates it along their axes) share one tensor, so no device
+    holds a slab twice."""
+    coords = _coords(mesh)
+
+    def one(_path, x, spec):
+        made: dict[tuple, torch.Tensor] = {}
+        per = []
+        for c in coords:
+            pos = dict(zip(mesh.axis_names, c))
+            dev = mesh.devices[c]
+            key = (str(dev), _blocks(spec, mesh, pos))
+            if key not in made:
+                slab = local_slab(x, spec, mesh, pos)
+                made[key] = slab if same_device(slab.device, dev) else slab.to(dev, copy=True)
+            per.append(made[key])
+        return per
+
+    return Placed(mesh, specs, map_specs(one, tree, specs), coords)
+
+
+def global_view(placed: Placed, device=None) -> PyTree:
+    """The global tree a ``Placed`` holds, each leaf a new tensor on
+    ``device`` (None: the device of position 0), its blocks copied from the
+    positions that hold them."""
+    mesh, coords = placed.mesh, placed.coords
+
+    def one(_path, per, spec):
+        first = per[0]
+        shape = list(first.shape)
+        for dim, entry in enumerate(spec):
+            if entry is not None:
+                shape[dim] *= axis_size(mesh, axes_of(entry))
+        out = torch.empty(shape, dtype=first.dtype,
+                          device=first.device if device is None else device)
+        done = set()
+        for c, slab in zip(coords, per):
+            pos = dict(zip(mesh.axis_names, c))
+            key = _blocks(spec, mesh, pos)
+            if key not in done:
+                done.add(key)
+                local_slab(out, spec, mesh, pos).copy_(slab)
+        return out
+
+    return map_specs(one, placed._leaves, placed.specs)

@@ -18,6 +18,16 @@ explicit, nothing is left to a partitioner:
   heads attend to, kvr = max(1, (H/tp) / (H/hkv)) (ranks_per_kv = tp/hkv
   ranks keep a copy each of one head when tp > hkv).
 
+The params and the cache are placed once per ``(pod, stage, rank)``
+(``place``, or ``serve.pipeline.place(..., manual=True)``) under
+``param_shardings`` and ``cache_shardings``: rank r's column slabs of
+``wq`` and ``w_gate``/``w_in``, its row slabs of ``wo``/``w_out``, its KV
+heads of the cache and their scales, and its columns of the embedding and
+the head lie on its device, and its replica of the activations too. Each
+rank reads the shared position from its own slab of ``index``. The two
+``psum``s of a layer and the embedding's gather are the only traffic
+inside a stage, and the activations' hop (one a lane) between stages.
+
 Two departures from the reference, both where it is wrong:
 - The reference keeps one KV head a rank, head (r*qh)//group, also when a
   rank's qh = H/tp query heads span more than one KV head (qh > H/hkv, e.g.
@@ -46,7 +56,7 @@ from repro_torch.device import resolve_device
 from repro_torch.launch import sharding as SR
 from repro_torch.models import layers as L
 from repro_torch.serve import gpipe
-from repro_torch.serve.pipeline import stage_slabs, write_back
+from repro_torch.serve.pipeline import placed
 from repro_torch.tree import tree_map_with_path
 
 __all__ = [
@@ -55,6 +65,7 @@ __all__ = [
     "init_kv_cache",
     "cache_shardings",
     "param_shardings",
+    "place",
     "build_manual_pipeline_step",
 ]
 
@@ -107,6 +118,15 @@ def cache_shardings(mesh) -> PyTree:
     return {"k": kv, "v": kv, "k_scale": kv, "v_scale": kv, "index": SR.P("data")}
 
 
+def _placed_cache_specs(mesh) -> PyTree:
+    """``cache_shardings`` with the batch over `pod`: the port gives pod p
+    its own rows of the one global cache (the module's second departure)."""
+    if "pod" not in mesh.shape:
+        return cache_shardings(mesh)
+    kv = SR.P("data", "pod", None, "model", None)
+    return {"k": kv, "v": kv, "k_scale": kv, "v_scale": kv, "index": SR.P("data")}
+
+
 def _block_spec(name: str, ndim: int) -> SR.PartitionSpec:
     spec = [None] * ndim
     spec[0] = "data"
@@ -136,6 +156,13 @@ def param_shardings(cfg: ArchConfig, mesh, params_shapes: PyTree) -> PyTree:
     return tree_map_with_path(one, params_shapes)
 
 
+def place(cfg: ArchConfig, mesh, params: PyTree, cache: PyTree) -> tuple[SR.Placed, SR.Placed]:
+    """The params and the cache placed once per (pod, stage, rank) for
+    ``build_manual_pipeline_step(cfg, mesh)`` (see ``serve.pipeline.place``)."""
+    return (SR.place(params, param_shardings(cfg, mesh, params), mesh),
+            SR.place(cache, _placed_cache_specs(mesh), mesh))
+
+
 def build_manual_pipeline_step(
     cfg: ArchConfig,
     mesh,
@@ -157,6 +184,9 @@ def build_manual_pipeline_step(
     heads = kv_heads(cfg, tp)
     per_stage = cfg.num_groups // stages
     axes = mesh.axis_names
+
+    def coord(p, s, r):
+        return tuple({"pod": p, "data": s, "model": r}[a] for a in axes)
 
     def layer_local(lp, x, kv, pos, r):
         """Rank r's part of one decoder layer on (mb, 1, d), ``lp`` its slab
@@ -204,76 +234,72 @@ def build_manual_pipeline_step(
             return (F.silu(h @ f["w_gate"]) * (h @ f["w_in"])) @ f["w_out"]
         return F.gelu(h @ f["w_in"], approximate="tanh") @ f["w_out"]
 
-    def rank_blocks(blocks, p, s, devices):
-        """Stage s's blocks as each rank holds them: one tree a rank, of its
-        (G/S, ...) slab of every leaf."""
-        return [tree_map_with_path(
-            lambda path, leaf, r=r: SR.local_slab(
-                leaf, _block_spec(str(path[-1]), leaf.ndim), mesh,
-                {"pod": p, "data": s, "model": r}).to(devices[r]),
-            blocks) for r in range(tp)]
+    def add(xs, ys):
+        """Each lane's residual add; lanes that share both tensors (ranks
+        on one device) share the sum."""
+        done: dict[tuple[int, int], torch.Tensor] = {}
+        out = []
+        for x, y in zip(xs, ys):
+            key = (id(x), id(y))
+            if key not in done:
+                done[key] = x + y
+            out.append(done[key])
+        return out
 
     @torch.no_grad()
     def serve_step(params: PyTree, token: torch.Tensor, cache: PyTree):
+        pp = placed(params, lambda t: param_shardings(cfg, mesh, t), mesh, "params")
+        pc = placed(cache, _placed_cache_specs(mesh), mesh, "cache")
         b = token.shape[0]
         b_pod = b // pods
         mb = b_pod // stages
-        pos = cache["index"][0]  # shared absolute position
-        xs_pods = []
+        tokens = []
         for p in range(pods):
-            at = {"pod": p}
             # devices[s][r]: the device of this pod's stage s, rank r
-            devices = [[mesh.devices[tuple({**at, "data": s, "model": r}[a] for a in axes)]
-                        for r in range(tp)] for s in range(stages)]
-            stage_dev = [row[0] for row in devices]
-            rows = slice(p * b_pod, (p + 1) * b_pod)
-            tok = token[rows]
-            blocks = [rank_blocks(params["blocks"]["layer0"], p, s, devices[s])
-                      for s in range(stages)]
-            # the pod's rows of the cache (a view), then each stage's groups
-            pod_cache = {k: cache[k][:, rows] for k in _KV}
-            caches = [stage_slabs(pod_cache, s, per_stage, stage_dev[s])
-                      for s in range(stages)]
+            devices = [[mesh.devices[coord(p, s, r)] for r in range(tp)] for s in range(stages)]
+            at = [[pp.at(coord(p, s, r)) for r in range(tp)] for s in range(stages)]
+            kv_at = [[pc.at(coord(p, s, r)) for r in range(tp)] for s in range(stages)]
+            # each rank reads the shared position from its own slab of index
+            pos = [[c["index"][0] for c in row] for row in kv_at]
+            caches = [[{k: c[k] for k in _KV} for c in row] for row in kv_at]
+            tok = token[p * b_pod:(p + 1) * b_pod]
 
-            # embed: d split over `model`, each rank's columns gathered back
-            x_local = [SR.local_slab(params["embed"], SR.P(None, "model"), mesh,
-                                     {**at, "data": 0, "model": r})
-                       .to(devices[0][r])[tok.to(devices[0][r])] for r in range(tp)]
-            x_all = mesh_mod.all_gather(x_local, stage_dev[0], axis=1)  # (B_pod, d)
-            x_groups = x_all.reshape(stages, mb, 1, -1).to(cfg.dtype())
+            # embed: d split over `model`, every rank of stage 0 gathers the
+            # columns (tiled all_gather), each its own replica
+            x_local = [at[0][r]["embed"][tok.to(devices[0][r])] for r in range(tp)]
+            x_groups = [mesh_mod.all_gather(x_local, dev, axis=1, shard=r)
+                        .reshape(stages, mb, 1, -1).to(cfg.dtype())
+                        for r, dev in enumerate(devices[0])]
 
-            def apply_stage(s, x, kv_stage, blocks=blocks, devices=devices):
+            def apply_stage(s, x, kv_ranks, at=at, devices=devices, pos=pos):
                 for j in range(per_stage):
-                    lps = [tree_map_with_path(lambda _p, w, j=j: w[j], rank_tree)
-                           for rank_tree in blocks[s]]
-                    kv_j = {k: kv_stage[k][j] for k in _KV}  # (mb, T, tp*kvr, hd)
-                    parts = []
-                    for r, dev in enumerate(devices[s]):
-                        kv_r = {k: kv_j[k].narrow(2, r * kvr, kvr) for k in _KV}
-                        parts.append(layer_local(lps[r], x.to(dev), kv_r, pos.to(dev), r))
-                    x = x + mesh_mod.psum(parts, devices[s])[0]
-                    parts = []
-                    for r, dev in enumerate(devices[s]):
-                        h = L.norm(x.to(dev), lps[r]["norm2"], cfg.norm)
-                        parts.append(ffn_local(lps[r]["ffn"], h))
-                    x = x + mesh_mod.psum(parts, devices[s])[0]
-                return x, kv_stage  # the ranks wrote their KV heads in place
+                    lps = [tree_map_with_path(lambda _p, w, j=j: w[j], a["blocks"]["layer0"])
+                           for a in at[s]]
+                    parts = [layer_local(lps[r], x[r], {k: kv_ranks[r][k][j] for k in _KV},
+                                         pos[s][r], r) for r in range(tp)]
+                    x = add(x, mesh_mod.psum(parts, devices[s]))
+                    parts = [ffn_local(lps[r]["ffn"], L.norm(x[r], lps[r]["norm2"], cfg.norm))
+                             for r in range(tp)]
+                    x = add(x, mesh_mod.psum(parts, devices[s]))
+                return x, kv_ranks  # the ranks wrote their KV heads in place
 
-            # the stage caches carry no index leaf (the shared position is
+            # the rank caches carry no index leaf (the shared position is
             # bumped below), so slice and write run on every leaf
-            xs_pods.append(gpipe.rotate(
+            xs = gpipe.rotate(
                 x_groups, caches, stages=stages,
                 apply_fn=apply_stage,
                 slice_fn=lambda c, m: gpipe.microbatch_slice(c, m, mb),
                 write_fn=lambda c, new, m, act: gpipe.microbatch_write(c, new, m, mb, act),
-                devices=stage_dev,
-            ))
-            write_back(pod_cache, caches, per_stage)
-        cache["index"].add_(1)
-        out_dev = params["final_norm"]["w"].device
-        xs = torch.cat([x.to(out_dev) for x in xs_pods])
-        h = L.norm(xs, params["final_norm"], cfg.norm)
-        logits = (h @ params["lm_head"]).float()
-        return torch.argmax(logits, dim=-1).to(torch.int32), cache
+                devices=devices,
+            )
+            # the head on stage 0's ranks, each its columns of the vocab,
+            # the logits gathered on rank 0
+            parts = [L.norm(xs[0][r], at[0][r]["final_norm"], cfg.norm) @ at[0][r]["lm_head"]
+                     for r in range(tp)]
+            logits = mesh_mod.all_gather(parts, devices[0][0], axis=-1, shard=0).float()
+            tokens.append(torch.argmax(logits, dim=-1).to(torch.int32))
+        for t in {id(i): i for i in (pc.at(c)["index"] for c in pc.coords)}.values():
+            t.add_(1)
+        return mesh_mod.all_gather(tokens, mesh.devices.flat[0], shard=0), cache
 
     return serve_step

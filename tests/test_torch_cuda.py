@@ -1002,6 +1002,64 @@ def test_pipeline_decode_on_the_card_matches_the_serve_step(cuda, variant):
         assert bool((got["layer0"]["mixer"]["index"] == 6).all())
 
 
+@pytest.mark.parametrize("variant", ["manual_1x2", "auto_2x1"])
+def test_pipeline_across_two_cards_matches_one(cuda, variant):
+    """One TP rank (manual (1, 2)) or one stage (auto (2, 1)) on each of two
+    cards, the params and the cache placed once from the CPU: the one-card
+    run's tokens and its whole cache, bit for bit, over 6 teacher-forced
+    steps (reduced llama, f32). Each position's slabs and its KV heads lie
+    on its own card, a global tree for the two-card mesh is refused, and no
+    hand-written kernel launches."""
+    from repro_torch.launch import mesh as LM
+    from repro_torch.launch import sharding as SR
+    from repro_torch.serve import pipeline as PL
+    from repro_torch.serve import pipeline_manual as PM
+    from repro_torch.tree import tree_map
+
+    cards = _two_cards()
+    cfg = _pipe_cfg()
+    manual = variant.startswith("manual")
+    shape = (1, 2) if manual else (2, 1)
+    b, t_len = 4, 16
+
+    def new_cache(dev):
+        if manual:
+            return PM.init_kv_cache(cfg, b, t_len, tp=shape[1], device=dev)
+        return TF.init_cache(cfg, b, t_len, device=dev)
+
+    params = TF.init_params(0, cfg, device="cpu")
+    one = PL.build_pipeline_step(cfg, LM.make_host_mesh(shape, device=cards[0]), manual=manual)
+    two_mesh = LM.make_host_mesh(shape, devices=cards)
+    assert [d.index for d in two_mesh.devices.ravel()] == [0, 1]
+    two = PL.build_pipeline_step(cfg, two_mesh, manual=manual)
+    on0 = tree_map(lambda x: x.to(cards[0]), params)
+    tok = torch.arange(1, b + 1, dtype=torch.int32, device=cards[0])
+    with pytest.raises(ValueError, match="place"):
+        two(on0, tok, new_cache(cards[0]))
+    pp, pc = PL.place(cfg, two_mesh, params, new_cache("cpu"), manual=manual)
+    if manual:
+        for r, card in enumerate(cards):
+            at = pc.at((0, r))
+            assert at["k"].device == card and at["index"].device == card
+            assert at["k"].shape[3] == PM.kv_per_rank(cfg, 2)
+            assert pp.at((0, r))["blocks"]["layer0"]["attn"]["wq"].device == card
+    else:
+        for s, card in enumerate(cards):
+            assert {x.device for x in tree_leaves(pc.at((s, 0))) if x is not None} == {card}
+            assert pp.at((s, 0))["blocks"]["layer0"]["attn"]["wq"].device == card
+    want = new_cache(cards[0])
+    reset_launches()
+    for _ in range(6):
+        ref, want = one(on0, tok, want)
+        out, pc = two(pp, tok, pc)
+        assert out.device == cards[0] and torch.equal(out, ref)
+        tok = ref
+    assert not any(LAUNCHES.values())
+    for a, b_ in zip(tree_leaves(SR.global_view(pc, cards[0])), tree_leaves(want)):
+        if b_ is not None:
+            assert torch.equal(a, b_)
+
+
 def test_train_and_prefill_steps_on_the_card(cuda):
     """build_train_step (reduced llama, 2 members, AdamW, 2 microbatches)
     lowers the loss on one batch; build_prefill_step's tokens are

@@ -130,19 +130,23 @@ def test_rotate_keeps_bubble_rows_and_lockstep():
     calls = []
 
     def apply_fn(s, x, sub):
+        (x,) = x  # one lane
         calls.append(s)
         sub["k"][0] = x[:, 0]
         sub["index"] += 1
-        return x + (s + 1), sub
+        return [x + (s + 1)], sub
 
     xs = gpipe.rotate(
-        x_groups, caches, stages=stages, apply_fn=apply_fn,
+        [x_groups], caches, stages=stages, apply_fn=apply_fn,
         slice_fn=lambda c, m: gpipe.microbatch_slice(c, m, mb, skip=_is_index),
         write_fn=lambda c, new, m, act: gpipe.microbatch_write(c, new, m, mb, act,
                                                                skip=_is_index),
-        devices=[CPU] * stages)
+        devices=[[CPU]] * stages)
     assert len(calls) == stages * (2 * stages - 1)  # every stage, every tick
-    assert torch.equal(xs, x_groups[:, :, 0].reshape(stages * mb, d) + 10)
+    # the emits' psum: every stage receives the outputs
+    assert len(xs) == stages
+    for (x,) in xs:
+        assert torch.equal(x, x_groups[:, :, 0].reshape(stages * mb, d) + 10)
     for s, c in enumerate(caches):
         assert int(c["index"]) == 0
         want = x_groups[:, :, 0].reshape(stages * mb, d) + sum(range(1, s + 1))

@@ -7,7 +7,9 @@ The reduced llama in the reference test's shape: the auto variant on meshes
 the port chooses the same tokens; plain caches within 1e-5, int8 caches
 within one quantization level (scales 1e-5 relative). With pods the
 reference's cache is pod 0's copy (each pod writes its rows at the top of
-its own replica), so only pod 0's rows are compared there.
+its own replica), so only pod 0's rows are compared there. The same holds
+for runs on trees placed once (``serve.pipeline.place``), their cache
+gathered back (``launch.sharding.global_view``).
 """
 
 import dataclasses
@@ -27,6 +29,7 @@ from repro.models import transformer as JTF
 from repro_torch.configs import base as tcfg
 from repro_torch.convert import params_from_numpy
 from repro_torch.launch import mesh as LM
+from repro_torch.launch import sharding as SR
 from repro_torch.models import transformer as TTF
 from repro_torch.serve import pipeline as PL
 from repro_torch.serve import pipeline_manual as PM
@@ -120,3 +123,31 @@ def test_manual_pipeline_matches_the_reference_pipeline(ref, model, shape):
     np.testing.assert_array_equal(chosen, ref[f"{name}/chosen"])
     pods = mesh.shape.get("pod", 1)
     _assert_cache_close(_leaves(cache), ref, name, rows=slice(0, B // pods))
+
+
+@pytest.mark.parametrize("kv_quant", [False, True], ids=["plain", "int8"])
+@pytest.mark.parametrize("shape", [(2, 2), (4, 1)], ids=["2x2", "4x1"])
+def test_placed_auto_pipeline_matches_the_reference_pipeline(ref, model, shape, kv_quant):
+    ct, pt = model
+    name = f"auto{shape}{kv_quant}"
+    mesh = LM.make_host_mesh(shape, device="cpu")
+    step = PL.build_pipeline_step(ct, mesh)
+    pp, pc = PL.place(ct, mesh, pt, TTF.init_cache(ct, B, T, kv_quant=kv_quant, device="cpu"))
+    chosen, pc = _drive(step, pp, pc, ref[f"{name}/fed"])
+    np.testing.assert_array_equal(chosen, ref[f"{name}/chosen"])
+    _assert_cache_close(_leaves(SR.global_view(pc)), ref, name)
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (2, 2, 2)], ids=["2x2", "pod2x2x2"])
+def test_placed_manual_pipeline_matches_the_reference_pipeline(ref, model, shape):
+    ct, pt = model
+    name = f"manual{shape}"
+    axes = ("data", "model") if len(shape) == 2 else ("pod", "data", "model")
+    mesh = LM.make_host_mesh(shape, axes, device="cpu")
+    step = PL.build_pipeline_step(ct, mesh, manual=True)
+    cache = PM.init_kv_cache(ct, B, T, tp=mesh.shape["model"], device="cpu")
+    pp, pc = PL.place(ct, mesh, pt, cache, manual=True)
+    chosen, pc = _drive(step, pp, pc, ref[f"{name}/fed"])
+    np.testing.assert_array_equal(chosen, ref[f"{name}/chosen"])
+    pods = mesh.shape.get("pod", 1)
+    _assert_cache_close(_leaves(SR.global_view(pc)), ref, name, rows=slice(0, B // pods))

@@ -2,7 +2,7 @@
 """Drive the PyTorch port (src/repro_torch) on one CUDA card, end to end.
 
     python3 chip_smoke.py [--baseline DIR] [--sharded-state] [--pipeline-train]
-                          [--pipeline-cards]
+                          [--pipeline-cards] [--lm-cards]
 
 ``--baseline DIR`` names a directory holding other versions of
 gossip_mix.cu, sparse_gossip.cu and flash_attention.cu (an earlier commit's,
@@ -12,7 +12,8 @@ process. ``--sharded-state`` runs only phases 1, 2 and 9c (on a machine
 with several cards, the run across them). ``--pipeline-train`` runs only
 phase 21's train step, which the full run starts as a child process.
 ``--pipeline-cards`` runs only phases 1, 2 and 21c (the pipeline decoders
-laid over every card).
+laid over every card). ``--lm-cards`` runs only phases 1, 2 and 17c (the
+LLM cohort's state sharded over the cards).
 
 Phases, in order; any failure exits non-zero, and no phase catches and
 carries on:
@@ -169,6 +170,25 @@ carries on:
                the blocked kernel's one block has 6 padding rows) and on
                uniform rows of the widest leaf's shape, and the
                fused path's full-width round (sparse_pallas, CUDA graphs);
+17c. lm_cards -- the LLM cohort's state sharded over the cards (no kernel
+               launch): (a) phase 17's full-width cohort (2 members, bf16,
+               AdamW, CHOCO 0.1, batch 4 x 128, lr 3e-5, a ring, 4 steps) in
+               process on sparse_sharded over 2 shards (on two cards, or
+               both on cuda:0 with one) against sparse on cuda:0: each
+               shard's slabs on its card, equal losses and params bits (else
+               the largest gap, held at 1e-5), each card's peak and the loop
+               round. (b) With four or more cards, python -m
+               repro_torch.launch.train --full-scale --mix-backend
+               sparse_sharded --nodes 8 in a child process, the default mesh
+               (2 members a card): exit 0, finite records, the loss falls;
+               each shard's state bytes as reckoned from the member, each
+               card's rise in allocated memory after construction within
+               them plus 64 MiB (less than any of the 9 large leaves of the
+               whole cohort); each card's peak under its memory; the bytes
+               crossing between cards a gossip round (core.mesh.wire_bytes)
+               equal to halo_wire_bytes summed over the leaves and shards;
+               the loop round beside (a)'s. With fewer cards, a line saying
+               (b) was not exercised;
 18. route    -- python -m repro_torch.experiments.serve_eval with its
                defaults (train a star cohort, checkpoint, params-only
                restore, route): router_beats_round_robin and the serve
@@ -275,7 +295,7 @@ carries on:
                sizes, at once, on the card: exit 0.
 
 The card's name and power limit (nvidia-smi) stand beside the numbers of
-phases 17 to 23. A ``[walltime]`` line follows each phase.
+phases 17 to 23 (17c included). A ``[walltime]`` line follows each phase.
 
 The line before the last is a JSON object with one entry per kernel (its
 launches: those of every path above that runs it, each path's counts set to
@@ -617,6 +637,9 @@ def main() -> int:
                     help="run only phases 1, 2 and 9c (the sharded state, across every card)")
     ap.add_argument("--pipeline-cards", action="store_true",
                     help="run only phases 1, 2 and 21c (the pipeline decoders over every card)")
+    ap.add_argument("--lm-cards", action="store_true",
+                    help="run only phases 1, 2 and 17c (the LLM cohort's state sharded over "
+                         "the cards)")
     ap.add_argument("--pipeline-train", action="store_true",
                     help="run only phase 21's build_train_step (the full run starts it as a "
                          "child process)")
@@ -681,6 +704,10 @@ def main() -> int:
     if args.pipeline_cards:
         pipeline_cards(smi)
         laps.lap("21c cards")
+        return 0
+    if args.lm_cards:
+        lm_cards(smi)
+        laps.lap("17c lm_cards")
         return 0
 
     # 3. kernel against plain, on the card
@@ -878,6 +905,8 @@ def main() -> int:
     laps.lap("16 lm")
     full_launches, full_err = lm_full_width(dev, smi)
     laps.lap("17 lm_full")
+    lm_cards(smi)
+    laps.lap("17c lm_cards")
     route_cli(smi)
     laps.lap("18 route")
     # 19-20. slice G: the rest of the model zoo, served and trained
@@ -2395,7 +2424,7 @@ def lm_full_round_split(dev, smi: str) -> dict[str, float]:
     times = []
     for r in range(2):  # round 0 pays lazy initialisation; round 1 is reported
         e0 = ev()
-        toks, labels = tr._batch(r)
+        ((toks, labels),) = tr._batch(r)
         lr = tr._sched(r).to(dev)
         e1 = ev()
         leaves = [p.detach().requires_grad_(True) for p in tree_leaves(tr.params)]
@@ -2408,7 +2437,7 @@ def lm_full_round_split(dev, smi: str) -> dict[str, float]:
         del grads
         e3 = ev()
         tr.engine.refresh(r)
-        tr._gossip(lambda q: tr.engine.mix([q])[0])
+        tr._gossip(lambda xs: [tr.engine.mix([xs[0]])[0]])
         e4 = ev()
         with torch.no_grad():
             for ref in tree_leaves(tr.cstate.reference):
@@ -2450,7 +2479,7 @@ def lm_full_fused_round(dev, smi: str) -> None:
     rounds = 6
     tr._begin(rounds)
     staged = _LMFusedRounds(tr, tr.engine.program(rounds, kind="sparse_pallas"))
-    batches = [tr._batch(r) for r in range(rounds)]
+    batches = [tr._batch(r)[0] for r in range(rounds)]
     times = []
     try:
         for r, (toks, labels) in enumerate(batches):
@@ -2574,6 +2603,191 @@ def lm_full_width(dev, smi: str) -> tuple[dict[str, int], dict[str, float]]:
     errs = lm_full_round_split(dev, smi)
     lm_full_fused_round(dev, smi)
     return launches, errs
+
+
+def lm_cohort(cfg, backend: str, m, nodes: int = 2):
+    """Phase 17's full-width cohort in process (llama3.2-1b, bf16, AdamW,
+    CHOCO auto, batch 4 x 128, lr 3e-5, a ring), homed on cuda:0."""
+    from repro_torch.train.trainer import LMCohortTrainer
+
+    return LMCohortTrainer("ring", cfg, nodes=nodes, batch=4, seq=128, lr=LM_FULL_LR,
+                           backend=backend, mesh=m, device=torch.device("cuda", 0))
+
+
+def loop_round_ms(records: list[dict]) -> float:
+    """A loop round from a run's records at its first and last rounds (the
+    CLI's eval cadence): the rounds after the first, the last's evaluation
+    included, on the host clock."""
+    first, last = records[0], records[-1]
+    return (last["wall_s"] - first["wall_s"]) / (last["round"] - first["round"]) * 1e3
+
+
+def lm_cards(smi: str) -> None:
+    """Phase 17c: the LLM cohort's state sharded over the cards (no kernel
+    launch). (a) Phase 17's 2 full-width members on sparse_sharded over 2
+    shards (on 2 cards, or both on cuda:0) against sparse on cuda:0: equal
+    losses and params bits, each card's peak. (b) With four or more cards,
+    8 members through launch.train on the default mesh, 2 a card."""
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.core import mesh
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.tree import tree_leaves
+
+    cards = torch.cuda.device_count()
+    cfg = cfgbase.get("llama3.2-1b")
+    cpu, card0 = torch.device("cpu"), torch.device("cuda", 0)
+    devices = [card0, torch.device("cuda", 1)] if cards >= 2 else [card0, card0]
+    used = sorted({d.index for d in devices})
+    reset_launches()
+    runs = {}
+    for name, backend, m in (("sparse", "sparse", None),
+                             ("sparse_sharded", "sparse_sharded", mesh.Mesh(devices, ("data",)))):
+        free_card()
+        for c in range(cards):
+            torch.cuda.reset_peak_memory_stats(c)
+        tr = lm_cohort(cfg, backend, m)
+        recs = tr.run(LM_FULL_STEPS, eval_every=20)
+        for c in used:
+            torch.cuda.synchronize(c)
+        peaks = [torch.cuda.max_memory_allocated(c) / 2**30 for c in used]
+        if backend == "sparse":
+            leaves = [x.to(cpu) for x in tree_leaves(tr.params)]
+        else:
+            where = [sorted({str(x.device) for x in tree_leaves(p)}) for p in tr._p]
+            if where != [[str(d)] for d in devices]:
+                fail(f"17c (a): the shards' slabs on {where}, their mesh devices {devices}")
+            # Leaf by leaf from the shards to the host: never a whole leaf on a card.
+            leaves = [mesh.gather(list(xs), cpu) for xs in zip(*(tree_leaves(p) for p in tr._p))]
+        runs[name] = (recs, leaves, peaks, tr.compress)
+        phase("lm_cards", f"(a) {name}: 2 members, {tr.shards} shard(s) on "
+                          f"{[str(d) for d in (devices if tr.sharded else [card0])]}, compress "
+                          f"{tr.compress}: loss {recs[0]['loss']:.4f} -> {recs[-1]['loss']:.4f}; "
+                          f"a loop round {loop_round_ms(recs):.2f} ms (rounds 1-3, the last's "
+                          "evaluation included); peak by card "
+                          + ", ".join(f"cuda:{c} {p:.3f} GiB" for c, p in zip(used, peaks))
+                          + f"; {smi}")
+        del tr
+    (got_recs, got, _, _), (want_recs, want, _, _) = runs["sparse_sharded"], runs["sparse"]
+    same = all(torch.equal(a, b) for a, b in zip(got, want, strict=True))
+    diff = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+    losses = [(a["loss"], b["loss"]) for a, b in zip(got_recs, want_recs, strict=True)]
+    phase("lm_cards", f"(a) sparse_sharded vs sparse: params identical {same} (max abs diff "
+                      f"{diff:.3e}, tol 1e-5 where bits do not hold); losses "
+                      + ", ".join(f"{a:.6f}/{b:.6f}" for a, b in losses))
+    if any(a != b for a, b in losses) or not (same or diff <= 1e-5):
+        fail(f"17c (a): the sharded cohort leaves sparse: params {diff}, losses {losses}")
+    del got, want, runs
+    free_card()
+    if any(LAUNCHES.values()):
+        fail(f"17c launched a hand-written kernel: {dict(LAUNCHES)}")
+    if cards < 4:
+        phase("lm_cards", f"{cards} card(s): (b), 8 full-width members on four cards, was not "
+                          "exercised")
+        return
+    lm_cards_eight(cfg, cards, loop_round_ms(got_recs), loop_round_ms(want_recs), smi)
+
+
+def lm_cards_eight(cfg, cards: int, two_sharded_ms: float, two_ms: float, smi: str) -> None:
+    """Phase 17c (b): python -m repro_torch.launch.train --full-scale
+    --mix-backend sparse_sharded --nodes 8 in a child process, on the
+    default mesh (one shard a card, 2 members each)."""
+    from repro_torch.core import decavg, mesh, sparse
+    from repro_torch.experiments.store import ResultsStore
+    from repro_torch.models import transformer as TF
+    from repro_torch.tree import tree_leaves
+
+    nodes, shards = 8, cards
+    blk = nodes // shards
+    member = tree_leaves(TF.init_params(0, cfg, device="meta"))
+    n_params = sum(x.numel() for x in member)
+    # Each shard's state: bf16 params, f32 AdamW moments and CHOCO
+    # references for its members, and its copy of the int32 step count.
+    state = blk * sum(x.numel() * (x.element_size() + 3 * 4) for x in member) + 4
+    # A whole cohort leaf of any of the 9 large leaves (8 x 16 layers x 2048
+    # x 512 bf16, the smallest, is 256 MiB) would not fit in this margin.
+    margin = 64 * 2**20
+    eng = decavg.GossipEngine("ring:n=8", backend="sparse_sharded",
+                              mesh=mesh.Mesh([torch.device("cpu")] * shards, ("data",)),
+                              device="cpu")
+    halo = "ring" if decavg._resolve_ring(eng._sharded_view()[0], "auto") else "allgather"
+    # halo_wire_bytes is linear in the width: over the leaves, the member's
+    # parameter count.
+    per_shard = sum(sparse.halo_wire_bytes(eng.sharded_csr(), x.numel())[halo] for x in member)
+    with tempfile.TemporaryDirectory() as tmp:
+        store_path = str(Path(tmp) / "train.jsonl")
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "llama3.2-1b",
+               "--full-scale", "--mix-backend", "sparse_sharded", "--nodes", str(nodes),
+               "--topology", "ring", "--steps", str(LM_FULL_STEPS), "--lr", str(LM_FULL_LR),
+               "--store", store_path]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True, timeout=900, cwd=ROOT,
+                             env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        wall = time.perf_counter() - t0
+        for line in res.stdout.strip().splitlines():
+            phase("lm_cards", f"(b) {line}")
+        if res.returncode != 0:
+            fail(f"{' '.join(cmd[1:])} exited {res.returncode}:\n{res.stderr[-4000:]}")
+        store = ResultsStore(store_path)
+        (rid, end), = store.finals().items()
+        records, final = store.curves(rid), end["final"]
+    out = res.stdout
+    finite = all(math.isfinite(r[k]) for r in records for k in ("loss", "lr", "g2_token_spread")) \
+        and all(math.isfinite(a) for r in records for a in r["domain_acc"]) \
+        and math.isfinite(final["consensus_mean"])
+    first, last = records[0], records[-1]
+    m = re.search(r"state sharded over (\d+) shards .*; state bytes by shard \[([\d, ]+)\]; "
+                  r"allocated after construction by card \[([\d, ]+)\]", out)
+    if m is None:
+        fail("(b) printed no sharded state line")
+    state_bytes = [int(x) for x in m.group(2).split(",")]
+    rise = [int(x) for x in m.group(3).split(",")]
+    wire = {k: int(v) for k, v in re.findall(r"([\w-]+)=(\d+)",
+                                             out.split("bytes between shards", 1)[1].splitlines()[0])}
+    mem = re.findall(r"cuda:(\d+) (\d+) (\d+)", out.split(
+        "peak and allocated device memory by card", 1)[1].splitlines()[0])
+    peaks = [int(p) for _, p, _ in mem]
+    held = [int(a) for _, _, a in mem]
+    total = [torch.cuda.get_device_properties(c).total_memory for c in range(cards)]
+    gossip_rounds = LM_FULL_STEPS
+    round_wire = wire["collective-permute"] / gossip_rounds
+    ms = loop_round_ms(records)
+    phase("lm_cards", f"(b) {nodes} members, {int(m.group(1))} shards of {blk}: loss "
+                      f"{first['loss']:.4f} (round {first['round']}) -> {last['loss']:.4f} (round "
+                      f"{last['round']}); state bytes by shard {state_bytes} (want {state}); rise "
+                      f"in allocated memory after construction by card "
+                      + ", ".join(f"cuda:{c} {r / 2**30:.3f} GiB" for c, r in enumerate(rise))
+                      + f" (state {state / 2**30:.3f} GiB + at most {margin / 2**20:.0f} MiB); peak "
+                      "by card " + ", ".join(f"cuda:{c} {p / 2**30:.3f} GiB of "
+                                             f"{t / 2**30:.3f}" for c, (p, t) in
+                                             enumerate(zip(peaks, total)))
+                      + "; allocated at the end by card "
+                      + ", ".join(f"cuda:{c} {a / 2**30:.3f} GiB" for c, a in enumerate(held))
+                      + f"; {smi}")
+    phase("lm_cards", f"(b) bytes between cards a gossip round (core.mesh.wire_bytes, "
+                      f"collective-permute) {round_wire:.0f} = {shards} shards x "
+                      f"halo_wire_bytes {per_shard} summed over the {len(member)} leaves ({halo} "
+                      f"halo, f32); the consensus after the run moved all-reduce "
+                      f"{wire['all-reduce']} B; {smi}")
+    phase("lm_cards", f"(b) a loop round {ms:.2f} ms ({1e3 / ms:.3f} rounds/s; rounds 1-3, the "
+                      f"last's evaluation included) for {nodes} members on {shards} cards, beside "
+                      f"{two_ms:.2f} ms for 2 members on one card (sparse) and {two_sharded_ms:.2f} "
+                      f"ms for them on 2 shards; {LM_FULL_STEPS / end['wall_s']:.3f} rounds/s with "
+                      f"set-up ({end['wall_s']:.2f} s in run_spec, {wall:.2f} s for the process); "
+                      f"{smi}")
+    if not finite:
+        fail(f"(b) a record is not finite: {records} {final}")
+    if final["fused"] is not False or final["backend"] != "sparse_sharded" or \
+            int(m.group(1)) != shards:
+        fail(f"(b) fused {final['fused']}, backend {final['backend']}, {m.group(1)} shards")
+    if not last["loss"] < first["loss"]:
+        fail(f"(b) the loss did not fall: {first['loss']} -> {last['loss']}")
+    if state_bytes != [state] * shards or not all(state <= r <= state + margin for r in rise):
+        fail(f"(b) state bytes {state_bytes}, rises {rise}, want {state} + {margin}")
+    if not all(p < t for p, t in zip(peaks, total)):
+        fail(f"(b) peaks {peaks} of {total}")
+    if round_wire != shards * per_shard:
+        fail(f"(b) {round_wire} B crossed a gossip round, halo_wire_bytes gives "
+             f"{shards * per_shard}")
 
 
 # -- 19-20. slice G: the rest of the model zoo ---------------------------------

@@ -92,11 +92,13 @@ def _open(path: str):
     return path, data, json.loads(str(data["__meta__"]))
 
 
-def restore(path: str, like: PyTree) -> tuple[PyTree, int | None]:
+def restore(path: str, like: PyTree, *,
+            device: str | torch.device | None = None) -> tuple[PyTree, int | None]:
     """Restore into the structure of ``like``: each leaf takes the shape,
-    dtype and device of ``like``'s leaf (shapes must match)."""
+    dtype and device of ``like``'s leaf (shapes must match). ``device``
+    places every leaf there instead, so ``like`` may live on ``meta``."""
     _, data, meta = _open(path)
-    return _fill(like, lambda key, leaf: _load(data, key, leaf)), meta.get("step")
+    return _fill(like, lambda key, leaf: _load(data, key, leaf, device)), meta.get("step")
 
 
 def restore_subtree(path: str, like: PyTree, *, prefix: str,

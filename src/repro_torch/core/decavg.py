@@ -28,9 +28,10 @@ The execution paths, numerically equivalent (tests hold them to 3e-5):
    ``sparse`` for any S) and ``mix_permute`` (one ``ppermute`` per edge
    color, one node a shard). Each takes the whole node axis on one device
    and moves the slabs out and back; ``mix_sharded_sparse_slabs`` (and
-   ``MixingProgram.apply_local``) take and give per-shard slabs, each on
-   its shard's device, which is how a sharded ``run_fused`` keeps its
-   state sharded end to end.
+   ``MixingProgram.apply_local``, ``GossipEngine.mix_slabs``) take and
+   give per-shard slabs, each on its shard's device, which is how a
+   sharded ``run_fused`` and the LM cohort keep their state sharded end to
+   end.
 
 ``GossipEngine`` is the front door: it owns the topology (static graph or
 TopologySchedule), builds the mixing matrix (and, for the sparse backends,
@@ -153,7 +154,7 @@ def mix_sharded(
             raise ValueError(f"leaf leading axis {leaf.shape[0]} != num_nodes {n}")
         slabs = _slabs(leaf.reshape(n, -1).float(), devices)
         if schedule == "allgather":
-            outs = [wf[s * blk:(s + 1) * blk].to(d) @ mesh_mod.all_gather(slabs, d)
+            outs = [wf[s * blk:(s + 1) * blk].to(d) @ mesh_mod.all_gather(slabs, d, shard=s)
                     for s, d in enumerate(devices)]
         else:
             contribs = [wf[:, s * blk:(s + 1) * blk].to(d) @ slabs[s]
@@ -229,7 +230,7 @@ def _halo_exchange(sends: list[list[torch.Tensor]], devices: list[torch.device],
     shards = len(devices)
     if not ring:
         slabs = [x[0] for x in sends]
-        return [[mesh_mod.all_gather(slabs, d)] for d in devices]
+        return [[mesh_mod.all_gather(slabs, d, shard=s)] for s, d in enumerate(devices)]
     got: list[list[torch.Tensor]] = [[] for _ in range(shards)]
     for k, dist in enumerate(views[0].ring_dists):
         moved = mesh_mod.ppermute([x[k] for x in sends],
@@ -1003,6 +1004,49 @@ class GossipEngine:
             layout = sparse.ShardedELL.from_csr(shcsr, self.device)
             self._sh_views = (devices, layout.shard_views(list(devices)))
         return self._sh_views[1]
+
+    @property
+    def shard_devices(self) -> list[torch.device]:
+        """The device of each shard of the node axis, in shard order (mesh
+        backends)."""
+        return self.mesh.shard_devices(mesh_mod.axes_of(self.node_axis))
+
+    def mix_slabs(self, slabs: list[torch.Tensor], *, masks=None,
+                  pub: list[torch.Tensor] | None = None) -> list[torch.Tensor]:
+        """sparse_sharded: the current period's mix of one node-stacked leaf
+        held as per-shard slabs, shard s's (blk, ...) tensor on its device
+        in and its mixed slab out there, in the leaf's dtype (call
+        ``refresh`` first). Nothing is gathered to one device; the halo
+        exchange is the only traffic between shards, and the rows are
+        ``mix_sharded_sparse``'s, so ``sparse``'s bits. ``masks`` (from
+        ``shard_masks``) makes it the faulted round, over the shards'
+        published snapshots ``pub`` (None: fresh)."""
+        views = self._sharded_view()
+        flat = [x.reshape(x.shape[0], -1).float() for x in slabs]
+        if masks is None:
+            outs = mix_sharded_sparse_slabs(
+                views, flat, devices=self.shard_devices, halo_schedule=self.halo_schedule,
+                p_chunk=self._p_chunk(int(self._shcsr.values.shape[1])),
+            )
+        else:
+            outs = mix_sharded_sparse_faulted_slabs(
+                views, flat, None if pub is None else [q.reshape(q.shape[0], -1).float()
+                                                       for q in pub],
+                *masks, devices=self.shard_devices, halo_schedule=self.halo_schedule,
+            )
+        return [o.reshape(x.shape).to(x.dtype) for o, x in zip(outs, slabs)]
+
+    def shard_masks(self, round: int) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
+        """Round ``round``'s fault masks cut per shard, each on its shard's
+        device: the (E,) entry keep over the current period's
+        ``ShardedCSR`` and the (blk,) alive rows of its nodes."""
+        keep = self.sharded_keep(round)
+        alive = self.fault_trace.alive(round)
+        devices = self.shard_devices
+        blk = self.num_nodes // len(devices)
+        return ([torch.as_tensor(keep[s], device=d) for s, d in enumerate(devices)],
+                [torch.as_tensor(alive[s * blk:(s + 1) * blk], device=d)
+                 for s, d in enumerate(devices)])
 
     def w_at(self, round: int) -> torch.Tensor:
         self.refresh(round)

@@ -53,6 +53,7 @@ __all__ = [
     "axis_index",
     "all_gather",
     "psum",
+    "psum_rows",
     "psum_scatter",
     "ppermute",
     "same_device",
@@ -216,6 +217,23 @@ def psum(parts: list[torch.Tensor], devices: list[torch.device]) -> list[torch.T
     for p in parts[1:]:
         _tally("all-reduce", p)
         acc = acc + p.to(devices[0])
+    _tally("all-reduce", acc, len(devices) - 1)
+    return [acc.to(d) for d in devices]
+
+
+def psum_rows(slabs: list[torch.Tensor], devices: list[torch.device]) -> list[torch.Tensor]:
+    """``psum`` of the shards' row sums, added one row at a time in row
+    order, the running sum carried from each shard to the next: the bits do
+    not depend on how the rows are split into shards. Each shard gets the
+    (...) total on ``devices[i]``; the tally is ``psum``'s, 2 (n - 1) rows'
+    bytes."""
+    acc = None
+    for x, d in zip(slabs, devices):
+        if acc is not None:
+            _tally("all-reduce", acc)
+            acc = acc.to(d)
+        for row in x:
+            acc = row.clone() if acc is None else acc + row
     _tally("all-reduce", acc, len(devices) - 1)
     return [acc.to(d) for d in devices]
 

@@ -254,6 +254,13 @@ def _run_mlp(spec: ExperimentSpec, emit: Emit, verbose: bool,
     return final
 
 
+def _allocated_by_card(device: torch.device) -> list[int]:
+    """Bytes allocated on each local card (none off the card)."""
+    if device.type != "cuda":
+        return []
+    return [torch.cuda.memory_allocated(c) for c in range(torch.cuda.device_count())]
+
+
 def _run_lm(spec: ExperimentSpec, emit: Emit, verbose: bool,
             device: torch.device) -> dict[str, Any]:
     from repro_torch.configs import base as cfgbase
@@ -264,6 +271,7 @@ def _run_lm(spec: ExperimentSpec, emit: Emit, verbose: bool,
     if not m.get("full_scale", False):
         cfg = dataclasses.replace(cfg.reduced(), param_dtype="float32", optimizer=cfg.optimizer)
     n = int(m.get("nodes", 4))
+    held = _allocated_by_card(device)
     trainer = LMCohortTrainer(
         spec.topology,
         cfg,
@@ -287,6 +295,13 @@ def _run_lm(spec: ExperimentSpec, emit: Emit, verbose: bool,
             f"optimizer={cfg.optimizer} schedule={m.get('schedule', 'cosine')} "
             f"compress={trainer.compress} device={device_name(device)}"
         )
+        if trainer.sharded:
+            rise = [b - a for a, b in zip(held, _allocated_by_card(device))]
+            print(f"state sharded over {trainer.shards} shards on "
+                  f"{', '.join(str(d) for d in trainer.engine.shard_devices)}, "
+                  f"{n // trainer.shards} members a shard; state bytes by shard "
+                  f"{trainer.shard_state_bytes()}"
+                  + (f"; allocated after construction by card {rise}" if rise else ""))
     ckpt_every, ckpt_path = int(m.get("ckpt_every", 0)), m.get("ckpt_path", "")
     if m.get("resume") and ckpt_path:
         start = trainer.restore(ckpt_path)

@@ -8,14 +8,20 @@ results-store format as sweeps (``--store``, default
 results/torch_train_runs.jsonl). By default the members are the arch's
 ``.reduced()`` config in f32; ``--full-scale`` keeps its own widths and
 bf16 params (llama3.2-1b at ``--nodes 2`` with CHOCO on peaks at 52.7 GiB
-on an NVIDIA H100 80GB HBM3 at 700 W; a third member does not fit).
+on an NVIDIA H100 80GB HBM3 at 700 W; a third member does not fit on one
+card).
 
 Run:  PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b --steps 50
       PYTHONPATH=src python -m repro_torch.launch.train --steps 2 --device cpu
 
 Without ``--device`` it runs on the card, and raises where there is none.
-After the run it prints the kernels' launch counts and, on the card, the
-peak device memory.
+After the run it prints the kernels' launch counts, the bytes the mesh
+backends moved between shards (``core.mesh.wire_bytes``) and, on the card,
+the peak device memory; on a machine with several cards, each card's peak
+and allocated bytes. ``--mix-backend sparse_sharded`` holds the cohort's
+state sharded over the default mesh, one shard per card (``--nodes``
+divisible by the cards): llama3.2-1b at ``--full-scale`` trains 8 members
+on four cards.
 """
 
 from __future__ import annotations
@@ -115,7 +121,7 @@ def parser() -> argparse.ArgumentParser:
                          "continue bit-identically from the saved round")
     ap.add_argument("--full-scale", action="store_true",
                     help="use the unreduced arch config in bf16 (llama3.2-1b: "
-                         "2 members fit one 80 GB card)")
+                         "2 members fit one 80 GB card; sparse_sharded puts 2 on each card)")
     ap.add_argument("--store", default="results/torch_train_runs.jsonl",
                     help="results JSONL (same schema as the sweep store)")
     ap.add_argument("--seed", type=int, default=0)
@@ -126,15 +132,20 @@ def parser() -> argparse.ArgumentParser:
 def main(argv: list[str] | None = None) -> dict:
     import torch
 
+    from repro_torch.core import mesh
     from repro_torch.device import resolve_device
     from repro_torch.kernels import LAUNCHES, reset_launches
 
     args = parser().parse_args(argv)
     dev = resolve_device(args.device)
     spec = build_spec(args)
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(dev)
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    if cards:
+        torch.cuda.init()  # the allocator's stats of every card exist from here on
+    for c in range(cards):
+        torch.cuda.reset_peak_memory_stats(c)
     reset_launches()
+    mesh.reset_wire_bytes()
     result = runner.run_spec(spec, ResultsStore(args.store), verbose=True, device=dev)
     final = result["final"]
     spread = final.get("g2_token_spread")
@@ -145,9 +156,16 @@ def main(argv: list[str] | None = None) -> dict:
         f"-> {args.store} ({result['run_id']})"
     )
     print("kernel launches " + " ".join(f"{k}={v}" for k, v in LAUNCHES.items()))
+    wire = mesh.wire_bytes()
+    if any(wire.values()):
+        print("bytes between shards " + " ".join(f"{k}={v}" for k, v in wire.items()))
     if dev.type == "cuda":
         print(f"peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB "
               f"on {torch.cuda.get_device_name(dev)}")
+    if cards > 1:
+        print("peak and allocated device memory by card " + ", ".join(
+            f"cuda:{c} {torch.cuda.max_memory_allocated(c)} {torch.cuda.memory_allocated(c)}"
+            for c in range(cards)))
     return result
 
 

@@ -57,19 +57,23 @@ def consensus_distance(params: PyTree) -> torch.Tensor:
     return sharded_consensus_distance([params], leaves[0].device)
 
 
-def sharded_consensus_distance(slabs: list[PyTree], device: torch.device) -> torch.Tensor:
+def sharded_consensus_distance(slabs: list[PyTree], device: torch.device, *,
+                               in_node_order: bool = False) -> torch.Tensor:
     """``consensus_distance`` of a node axis held as per-shard slabs (shard
     s's (blk, ...) tree on its own device, in node order): each leaf's node
     mean is the shards' column sums added in shard order (``core.mesh.psum``)
     over N, each shard then measures its own nodes, and only the (N,)
-    distances are gathered, to ``device``."""
+    distances are gathered, to ``device``. ``in_node_order`` adds the nodes
+    one at a time in node order instead (``core.mesh.psum_rows``), N adds a
+    leaf, so any shard count gives the same bits."""
     per_shard = [tree_leaves(t) for t in slabs]
     devices = [leaves[0].device for leaves in per_shard]
     n = sum(int(leaves[0].shape[0]) for leaves in per_shard)
     totals: list[torch.Tensor | None] = [None] * len(slabs)
     for j in range(len(per_shard[0])):
         flats = [leaves[j].reshape(leaves[j].shape[0], -1).float() for leaves in per_shard]
-        sums = mesh_mod.psum([f.sum(dim=0, keepdim=True) for f in flats], devices)
+        sums = (mesh_mod.psum_rows(flats, devices) if in_node_order
+                else mesh_mod.psum([f.sum(dim=0, keepdim=True) for f in flats], devices))
         for s, (f, total) in enumerate(zip(flats, sums)):
             sq = ((f - total / n) ** 2).sum(dim=1)
             totals[s] = sq if totals[s] is None else totals[s] + sq

@@ -30,8 +30,10 @@ Two execution paths over the same numerics, as in the reference:
 The mesh backends (``sharded``, ``sparse_sharded``, ``permute``) mix over
 the engine's ``core.mesh.Mesh`` (default: one shard per local card, one on
 the CPU), whose shards may sit on several devices; the trainer's device,
-the home of ``params``, ``w`` and the metrics, must be one of them. ``run``
-keeps the state on that device, and each mix moves the slabs out and back.
+the home of ``params``, ``w`` and the metrics, must be one of them.
+``DecentralizedTrainer.run`` keeps the state on that device, and each mix
+moves the slabs out and back (``LMCohortTrainer`` holds its cohort sharded
+on ``sparse_sharded`` instead; see its docstring).
 ``run_fused`` on ``sparse_sharded`` keeps the state sharded end to end, as
 the reference's ``_scan_rounds_sharded``: each shard's slab of the params,
 momentum, CHOCO reference and fault state lives on its own device for the
@@ -807,10 +809,32 @@ def _copy_into(dst: PyTree, src: PyTree) -> None:
         d.copy_(s)
 
 
+def _map_state(fn: Callable[..., torch.Tensor], tree: PyTree, *rest: PyTree) -> PyTree:
+    """``tree_map`` that keeps a NamedTuple at the top (an optimizer or
+    compression state) as its own type."""
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, *xs) for xs in zip(tree, *rest)))
+    return tree_map(fn, tree, *rest)
+
+
 def _scatter_tree(tree: PyTree, devices: list[torch.device]) -> list[PyTree]:
-    """A node-stacked tree as one tree of slabs a shard (``core.mesh.scatter``)."""
-    per_leaf = [mesh_mod.scatter(x, devices) for x in tree_leaves(tree)]
-    return [tree_unflatten(tree, [p[s] for p in per_leaf]) for s in range(len(devices))]
+    """A node-stacked tree as one tree of slabs a shard (``core.mesh.scatter``),
+    each a copy on its shard's device; a 0-dim leaf (AdamW's shared step
+    count) is copied to every shard."""
+    per_leaf = [[x.to(d, copy=True) for d in devices] if x.dim() == 0
+                else mesh_mod.scatter(x, devices) for x in tree_leaves(tree)]
+    out = []
+    for s in range(len(devices)):
+        it = iter([p[s] for p in per_leaf])
+        out.append(_map_state(lambda _, it=it: next(it), tree))
+    return out
+
+
+def _gather_tree(parts: list[PyTree], device: torch.device) -> PyTree:
+    """Per-shard trees back as one node-stacked tree on ``device``, leaf by
+    leaf in shard order (``core.mesh.gather``); a 0-dim leaf is shard 0's."""
+    return _map_state(lambda *xs: (xs[0].to(device, copy=True) if xs[0].dim() == 0
+                                   else mesh_mod.gather(list(xs), device)), *parts)
 
 
 # ---------------------------------------------------------------------------
@@ -851,19 +875,36 @@ class LMCohortTrainer:
     freezes, CHOCO) are in place and leaf by leaf, so a full-width member
     never needs a second copy of the tree.
 
+    On ``sparse_sharded`` the cohort's state is sharded, as the reference
+    keeps it: the params, the optimizer state (AdamW's moments, its shared
+    step count replicated on each shard; SGD's momentum), CHOCO's references
+    and the straggler ring are per-shard slabs, shard s's nodes
+    ``[s N/S, (s+1) N/S)`` on the s-th device of the engine's mesh (default:
+    one shard per card), from construction on and across ``run`` calls. Each
+    shard's local step, dead-node freezes, CHOCO top-k (per node row, so
+    exact per shard) and metrics run on its own device, and the halo
+    exchange of the mix (``GossipEngine.mix_slabs``, leaf by leaf, so the
+    transient halo is one leaf's) is the only traffic between shards. It
+    gives ``sparse``'s bits. ``params``, ``opt_state`` and ``cstate`` read
+    as the global trees, gathered to the trainer's device (a copy), and
+    assigning one scatters it; nothing on the path of ``run``, the metrics
+    or the checkpoint reads them whole. ``run_fused`` does not stage
+    ``sparse_sharded``, as in the reference. Every other backend keeps the
+    cohort on the trainer's device.
+
     ``compress="auto"`` turns on CHOCO top-k gossip when a member exceeds
     ~1 MB; a float is an explicit k fraction and ``None`` forces raw DecAvg.
     Faults never compose with compression: "auto" resolves to off under
     faults, an explicit fraction raises. With ``faults=`` dead nodes keep
     their params and both optimizer moments bit-exactly (AdamW's shared step
     count advances). Checkpoints save ``(params, opt[, cstate])`` plus the
-    step, and ``restore`` resumes bit-identically. As in the reference,
-    ``cfg.opt_dtype`` is not read: the moments are f32. ``mesh`` is the
-    engine's, for the mesh backends, which mix in ``run`` only, the cohort
-    staying on the trainer's device (without one, sparse_sharded takes the
-    engine's default mesh). An enc-dec
-    member is refused: the cohort's batches are tokens only, with no encoder
-    frames (the reference's cohort stops at ``KeyError: 'frames'``).
+    step, and ``restore`` resumes bit-identically (a sharded trainer's go
+    leaf by leaf through the host, and either kind restores the other's).
+    As in the reference, ``cfg.opt_dtype`` is not read: the moments are
+    f32. ``mesh`` is the engine's, for the mesh backends (without one,
+    sparse_sharded takes the engine's default mesh). An enc-dec member is
+    refused: the cohort's batches are tokens only, with no encoder frames
+    (the reference's cohort stops at ``KeyError: 'frames'``).
     """
 
     def __init__(
@@ -906,18 +947,26 @@ class LMCohortTrainer:
         self.mix_impl = self.engine.backend
         self.faulted = self.engine.faults is not None
         self._has_hist = self.faulted and self.engine.fault_trace.delay_max > 0
+        self.sharded = self.mix_impl == "sparse_sharded"
+        self._devs = self._shard_devices()
 
         gen = torch.Generator(device=self.device).manual_seed(int(seed))
         per_node = TF.init_params(gen, cfg, device=self.device)
         self.member_params = TF.param_count(per_node)
         self.member_bytes = sum(x.numel() * x.element_size() for x in tree_leaves(per_node))
         self.compress = self._resolve_compress(compress)
-        n = self.num_nodes
-        self.params = tree_map(lambda x: x.expand(n, *x.shape).contiguous(), per_node)
+        # The one draw copied to each shard's device and broadcast over its
+        # nodes (all N on the trainer's device when unsharded), into tensors
+        # of their own: an expanded view of one node is already contiguous.
+        blk = self.num_nodes // len(self._devs)
+        self._p = [tree_map(lambda x, d=d: x.new_empty((blk, *x.shape), device=d).copy_(x.to(d)),
+                            per_node)
+                   for d in self._devs]
         del per_node
         self.use_adamw = cfg.optimizer == "adamw"
-        self.opt_state = adamw.init(self.params) if self.use_adamw else sgd.init(self.params).momentum
-        self.cstate = None if self.compress is None else compress_mod.init(self.params)
+        self._o = [adamw.init(p) if self.use_adamw else sgd.init(p).momentum for p in self._p]
+        self._c = None if self.compress is None else [compress_mod.init(p) for p in self._p]
+        self._hist: list[PyTree] | None = None  # a sharded loop's straggler rings
         self.start_round = 0  # advanced by restore()
         self._loss_fn = ST.node_loss_fn(cfg)
         self._sched = None  # built per run (total_steps = that run's rounds)
@@ -931,6 +980,21 @@ class LMCohortTrainer:
     def supports_fused(self) -> bool:
         """True when ``run_fused`` can execute this trainer's backend."""
         return self.mix_impl in _LM_FUSED_BACKENDS
+
+    @property
+    def shards(self) -> int:
+        """How many shards hold the cohort's state (1 unless sharded)."""
+        return len(self._devs)
+
+    def shard_state_bytes(self) -> list[int]:
+        """Bytes of each shard's state: its params, optimizer state, CHOCO
+        references and straggler ring."""
+        parts = [self._p, self._o] + [x for x in (self._c, self._hist) if x is not None]
+        return [sum(x.numel() * x.element_size() for t in trees for x in tree_leaves(t))
+                for trees in zip(*parts)]
+
+    def _shard_devices(self) -> list[torch.device]:
+        return self.engine.shard_devices if self.sharded else [self.device]
 
     def _resolve_compress(self, compress) -> float | None:
         if compress == "auto":
@@ -949,72 +1013,211 @@ class LMCohortTrainer:
             )
         return k
 
-    # -- the round's pieces (in place on params, opt_state, cstate) ---------
+    # -- the state: one tree a shard (one in all when unsharded) --------------
+
+    def _whole(self, parts: list[PyTree]) -> PyTree:
+        return parts[0] if not self.sharded else _gather_tree(parts, self.device)
+
+    def _place(self, tree: PyTree) -> list[PyTree]:
+        return [tree] if not self.sharded else _scatter_tree(tree, self._devs)
+
+    @property
+    def params(self) -> PyTree:
+        """The node-stacked params; sharded, the shards' slabs gathered to
+        the trainer's device (a copy). Assigning a global tree scatters it."""
+        return self._whole(self._p)
+
+    @params.setter
+    def params(self, tree: PyTree) -> None:
+        self._p = self._place(tree)
+
+    @property
+    def opt_state(self) -> PyTree:
+        """AdamW's state or SGD's momentum, as ``params``."""
+        return self._whole(self._o)
+
+    @opt_state.setter
+    def opt_state(self, state: PyTree) -> None:
+        self._o = self._place(state)
+
+    @property
+    def cstate(self) -> compress_mod.CompressState | None:
+        """CHOCO's references (None without compression), as ``params``."""
+        return None if self._c is None else self._whole(self._c)
+
+    @cstate.setter
+    def cstate(self, state: compress_mod.CompressState | None) -> None:
+        self._c = None if state is None else self._place(state)
+
+    def _follow_mesh(self) -> None:
+        """Re-place a sharded state whose mesh was replaced since
+        (``engine.mesh = ...``): each tree gathered to the host and
+        scattered to the new shards' devices, never onto one card."""
+        devs = self._shard_devices()
+        if devs == self._devs:
+            return
+        cpu = torch.device("cpu")
+        trees = [_gather_tree(parts, cpu) if parts is not None else None
+                 for parts in (self._p, self._o, self._c, self._hist)]
+        self._devs = devs
+        self._p, self._o, self._c, self._hist = (
+            None if t is None else self._place(t) for t in trees)
+        self._eval_data = None
+
+    def _rows(self, a, s: int):
+        """Shard ``s``'s rows of a node-indexed array (all of them unsharded)."""
+        blk = self.num_nodes // len(self._devs)
+        return a[s * blk:(s + 1) * blk]
+
+    def _split(self, toks: np.ndarray, labels: np.ndarray) -> list[tuple[torch.Tensor, torch.Tensor]]:
+        """(N, ...) host token arrays cut on the host into each shard's rows
+        on its device."""
+        return [(torch.as_tensor(self._rows(toks, s), device=d),
+                 torch.as_tensor(self._rows(labels, s), device=d))
+                for s, d in enumerate(self._devs)]
+
+    def _mean(self, losses: list[torch.Tensor]) -> torch.Tensor:
+        """The cohort's mean of the shards' per-node values, in node order on
+        the trainer's device."""
+        return mesh_mod.gather(losses, self.device).mean()
+
+    # -- the round's pieces (in place on one shard's state) -------------------
 
     def _per_node(self, params: PyTree, toks: torch.Tensor, labels: torch.Tensor,
                   fn) -> torch.Tensor:
-        """(N,) values of ``fn(params[i], batch i)``, node ``i`` on its own
+        """(n,) values of ``fn(params[i], batch i)``, node ``i`` on its own
         (unstacked) params and its batch."""
         return torch.stack([
             fn(tree_map(lambda x, i=i: x[i], params),
                {"tokens": toks[i], "labels": labels[i]})
-            for i in range(self.num_nodes)
+            for i in range(toks.shape[0])
         ])
 
-    def _local_step(self, toks: torch.Tensor, labels: torch.Tensor, lr) -> torch.Tensor:
-        """One optimizer step on every node; returns the mean loss (0-dim)."""
-        leaves = [p.detach().requires_grad_(True) for p in tree_leaves(self.params)]
+    def _local_step(self, params: PyTree, opt: PyTree, toks: torch.Tensor,
+                    labels: torch.Tensor, lr) -> torch.Tensor:
+        """One optimizer step on every node of ``params`` (a shard's nodes,
+        or the cohort's) and its optimizer state ``opt``, in place; returns
+        their (n,) losses."""
+        leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
         with torch.enable_grad():
-            losses = self._per_node(tree_unflatten(self.params, leaves), toks, labels,
+            losses = self._per_node(tree_unflatten(params, leaves), toks, labels,
                                     self._loss_fn)
             grads = torch.autograd.grad(losses.sum(), leaves)
         del leaves
         if self.use_adamw:
-            adamw.update_(list(grads), self.opt_state, self.params, lr=lr)
+            adamw.update_(list(grads), opt, params, lr=lr)
         else:
-            sgd.update_(list(grads), self.opt_state, self.params, lr=lr, mu=0.5)
-        return losses.detach().mean()
+            sgd.update_(list(grads), opt, params, lr=lr, mu=0.5)
+        return losses.detach()
+
+    def _local_steps(self, batch: list[tuple[torch.Tensor, torch.Tensor]],
+                     lr: torch.Tensor) -> list[torch.Tensor]:
+        """Each shard's local step on its own device; their (blk,) losses."""
+        return [self._local_step(p, o, toks, labels, lr.to(d))
+                for p, o, (toks, labels), d in zip(self._p, self._o, batch, self._devs)]
 
     @torch.no_grad()
-    def _freeze_dead(self, alive: torch.Tensor, p_in: list[torch.Tensor],
-                     o_in: list[torch.Tensor]) -> None:
+    def _freeze_dead(self, params: PyTree, opt: PyTree, alive: torch.Tensor,
+                     p_in: list[torch.Tensor], o_in: list[torch.Tensor]) -> None:
         """Dead nodes back to their pre-round params and moments (the
-        reference's ``where_alive`` / ``where_alive_stacked``): ``p_in`` and
-        ``o_in`` are the leaves before the step, in ``tree_leaves`` order;
-        shared leaves (AdamW's count) pass through."""
-        n = self.num_nodes
-        for new, old in zip(tree_leaves(self.params) + tree_leaves(self.opt_state),
-                            p_in + o_in):
+        reference's ``where_alive`` / ``where_alive_stacked``): ``alive`` is
+        the nodes' of ``params``, ``p_in`` and ``o_in`` their leaves before
+        the step, in ``tree_leaves`` order; shared leaves (AdamW's count)
+        pass through."""
+        n = alive.shape[0]
+        for new, old in zip(tree_leaves(params) + tree_leaves(opt), p_in + o_in):
             if new.dim() and new.shape[0] == n:
                 new.copy_(torch.where(faults_mod._node_mask(alive, new), new, old))
 
     @torch.no_grad()
-    def _gossip(self, mix_leaf: Callable[[torch.Tensor], torch.Tensor]) -> None:
-        """One gossip exchange, leaf by leaf, through ``mix_leaf`` (a leaf ->
-        mixed leaf map). Without compression: DecAvg. With it, CHOCO: each
-        node publishes the top-k of ``params - reference`` (the reference
-        advances by it), peers mix the references, and each node keeps its
-        residual, ``params + W @ ref - ref``."""
+    def _gossip(self, mix: Callable[[list[torch.Tensor]], list[torch.Tensor]]) -> None:
+        """One gossip exchange, leaf by leaf, through ``mix`` (one leaf's
+        per-shard slabs -> its mixed slabs; unsharded, a list of one).
+        Without compression: DecAvg. With it, CHOCO: each node publishes the
+        top-k of ``params - reference`` (the reference advances by it),
+        peers mix the references, and each node keeps its residual,
+        ``params + W @ ref - ref``."""
+        per_shard = [tree_leaves(p) for p in self._p]
         if self.compress is None:
-            for p in tree_leaves(self.params):
-                p.copy_(mix_leaf(p))
+            for leaves in zip(*per_shard):
+                for p, m in zip(leaves, mix(list(leaves))):
+                    p.copy_(m)
             return
-        for p, ref in zip(tree_leaves(self.params), tree_leaves(self.cstate.reference)):
-            _, state = compress_mod.compress([p], compress_mod.CompressState([ref]),
-                                             k_frac=self.compress)
-            ref.copy_(state.reference[0])
-            del state
-            p.copy_((p.float() + (mix_leaf(ref) - ref)).to(p.dtype))
+        refs = [tree_leaves(c.reference) for c in self._c]
+        for leaves, shard_refs in zip(zip(*per_shard), zip(*refs)):
+            for p, ref in zip(leaves, shard_refs):
+                _, state = compress_mod.compress([p], compress_mod.CompressState([ref]),
+                                                 k_frac=self.compress)
+                ref.copy_(state.reference[0])
+                del state
+            for p, m, ref in zip(leaves, mix(list(shard_refs)), shard_refs):
+                p.copy_((p.float() + (m - ref)).to(p.dtype))
+
+    def _mix_leaf(self, slabs: list[torch.Tensor]) -> list[torch.Tensor]:
+        """The loop's mix of one leaf: sharded, of its slabs where they
+        live; else the engine's mix of the node-stacked leaf."""
+        if self.sharded:
+            return self.engine.mix_slabs(slabs)
+        return [self.engine.mix([slabs[0]])[0]]
+
+    def _faulted_round(self, r: int, batch, lr: torch.Tensor) -> list[torch.Tensor]:
+        """One faulted round of the loop: each shard trains and puts its
+        dead nodes back, then the renormalized faulted mix and the straggler
+        ring (the engine's, one call per round in order; the trainer's own
+        per-shard rings when sharded)."""
+        alive = self.engine.fault_trace.alive(r)
+        losses = []
+        for s, (p, o, (toks, labels), d) in enumerate(zip(self._p, self._o, batch, self._devs)):
+            p_in = [x.clone() for x in tree_leaves(p)]
+            o_in = [x.clone() for x in tree_leaves(o)]
+            losses.append(self._local_step(p, o, toks, labels, lr.to(d)))
+            self._freeze_dead(p, o, torch.as_tensor(self._rows(alive, s), device=d), p_in, o_in)
+            del p_in, o_in
+        with torch.no_grad():
+            if self.sharded:
+                self._mix_faulted_slabs(r)
+            else:
+                _copy_into(self._p[0], self.engine.mix(self._p[0], round=r))
+        return losses
+
+    @torch.no_grad()
+    def _mix_faulted_slabs(self, r: int) -> None:
+        """``engine.mix(params, round=r)`` of a faulted engine on the
+        shards' slabs: each shard's straggler ring pushed every round, and
+        on gossip rounds each leaf's renormalized mix of the published
+        snapshots."""
+        eng = self.engine
+        eng.refresh(r)
+        trace = eng.fault_trace
+        pub = None
+        if trace.delay_max > 0:
+            if self._hist is None:
+                self._hist = [faults_mod.init_history(p, trace.delay_max + 1) for p in self._p]
+            pub = [tree_leaves(faults_mod.push_and_publish(
+                       p, h, r, torch.as_tensor(self._rows(trace.delay, s), device=d))[0])
+                   for s, (p, h, d) in enumerate(zip(self._p, self._hist, self._devs))]
+        if not eng.is_gossip_round(r):
+            return
+        masks = eng.shard_masks(r)
+        for j, leaves in enumerate(zip(*(tree_leaves(p) for p in self._p))):
+            mixed = eng.mix_slabs(list(leaves), masks=masks,
+                                  pub=None if pub is None else [q[j] for q in pub])
+            for p, m in zip(leaves, mixed):
+                p.copy_(m)
 
     # -- metrics / checkpoint -------------------------------------------------
 
     @torch.no_grad()
     def consensus(self) -> np.ndarray:
-        return consensus_distance(self.params).cpu().numpy()
+        """(N,) distances to the node mean, its sums taken node by node in
+        node order, so a sharded cohort gives the unsharded bits."""
+        return sharded_consensus_distance(self._p, self.device,
+                                          in_node_order=True).cpu().numpy()
 
     @torch.no_grad()
-    def _domain_eval(self, toks: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-        """(N,) per-node mean true-token probability on the held-out
+    def _domain_eval(self, params: PyTree, toks: torch.Tensor,
+                     labels: torch.Tensor) -> torch.Tensor:
+        """(n,) per-node mean true-token probability on the held-out
         foreign-domain eval batch (``domain_acc``)."""
 
         def node_eval(p, batch):
@@ -1023,46 +1226,51 @@ class LMCohortTrainer:
             ll = logp.gather(-1, batch["labels"].long().unsqueeze(-1)).squeeze(-1)
             return torch.exp(ll).mean()
 
-        return self._per_node(self.params, toks, labels, node_eval)
+        return self._per_node(params, toks, labels, node_eval)
 
     def domain_metrics(self) -> dict:
         """G2-style knowledge-spread metrics on the token task: per-node
         ``domain_acc`` on *other* nodes' domain tokens, and their cohort mean
-        ``g2_token_spread`` (the store/analysis join key)."""
+        ``g2_token_spread`` (the store/analysis join key). Each shard's
+        members are evaluated on its device."""
         if self.num_nodes < 2:
             return {}
         from repro_torch.data import tokens as tok
 
         if self._eval_data is None:
-            toks, labels = tok.domain_eval_batch(
+            self._eval_data = self._split(*tok.domain_eval_batch(
                 self.num_nodes, self.batch, self.seq, self.cfg.vocab_size, seed=self.seed,
                 **{k: v for k, v in self.data_kwargs.items() if k == "domain_size"},
-            )
-            self._eval_data = (torch.as_tensor(toks, device=self.device),
-                               torch.as_tensor(labels, device=self.device))
-        accs = self._domain_eval(*self._eval_data).cpu().numpy()
+            ))
+        accs = mesh_mod.gather([self._domain_eval(p, toks, labels) for p, (toks, labels)
+                                in zip(self._p, self._eval_data)], self.device).cpu().numpy()
         return {
             "domain_acc": [round(float(a), 6) for a in accs],
             "g2_token_spread": float(accs.mean()),
         }
 
-    def _ckpt_tree(self) -> dict:
-        tree = {"params": self.params, "opt": self.opt_state}
-        if self.cstate is not None:
-            tree["cstate"] = self.cstate
-        return tree
+    def _state_trees(self) -> dict[str, list[PyTree]]:
+        trees = {"params": self._p, "opt": self._o}
+        if self._c is not None:
+            trees["cstate"] = self._c
+        return trees
 
     def save(self, path: str, *, step: int) -> None:
         """Checkpoint ``(params, opt[, cstate])`` plus the step: everything a
-        bit-identical resume needs (the reference's npz layout)."""
+        bit-identical resume needs (the reference's npz layout). A sharded
+        state is gathered leaf by leaf to the host, never onto one card."""
         from repro_torch.checkpoint import ckpt
 
-        ckpt.save(path, self._ckpt_tree(), step=step)
+        cpu = torch.device("cpu")
+        ckpt.save(path, {k: _gather_tree(v, cpu) if self.sharded else v[0]
+                         for k, v in self._state_trees().items()}, step=step)
 
     def restore(self, path: str) -> int:
         """Restore a ``save`` checkpoint; the next ``run``/``run_fused``
         continues from the round after the saved step, re-deriving the same
-        batches and LR the uninterrupted run would have seen."""
+        batches and LR the uninterrupted run would have seen. A sharded
+        trainer reads each leaf to the host and scatters it; checkpoints of
+        either kind restore into either."""
         from repro_torch.checkpoint import ckpt
 
         if self._has_hist:
@@ -1070,11 +1278,19 @@ class LMCohortTrainer:
                 "resume does not compose with straggler faults: the "
                 "delayed-snapshot ring buffer is not checkpointed"
             )
-        tree, step = ckpt.restore(path, self._ckpt_tree())
+        if self.sharded:
+            def meta(x: torch.Tensor) -> torch.Tensor:
+                shape = (self.num_nodes,) + tuple(x.shape[1:]) if x.dim() else ()
+                return torch.empty(shape, dtype=x.dtype, device="meta")
+
+            like = {k: _map_state(meta, v[0]) for k, v in self._state_trees().items()}
+            tree, step = ckpt.restore(path, like, device="cpu")
+        else:
+            tree, step = ckpt.restore(path, {k: v[0] for k, v in self._state_trees().items()})
         if step is None:
             raise ValueError(f"checkpoint {path!r} carries no step")
         self.params, self.opt_state = tree["params"], tree["opt"]
-        if self.cstate is not None:
+        if self._c is not None:
             self.cstate = tree["cstate"]
         self.start_round = int(step) + 1
         return self.start_round
@@ -1088,15 +1304,14 @@ class LMCohortTrainer:
         s.add(rounds - 1)
         return s
 
-    def _batch(self, r: int) -> tuple[torch.Tensor, torch.Tensor]:
+    def _batch(self, r: int) -> list[tuple[torch.Tensor, torch.Tensor]]:
+        """Round ``r``'s tokens and labels, each shard's rows on its device."""
         from repro_torch.data import tokens as tok
 
-        toks, labels = tok.round_token_batch(
+        return self._split(*tok.round_token_batch(
             self.num_nodes, r, self.batch, self.seq, self.cfg.vocab_size,
             seed=self.seed, **self.data_kwargs,
-        )
-        return (torch.as_tensor(toks, device=self.device),
-                torch.as_tensor(labels, device=self.device))
+        ))
 
     def _round_record(self, r: int, loss, lr, t0: float) -> dict:
         rec = {
@@ -1122,8 +1337,8 @@ class LMCohortTrainer:
         """A resume that restored the final checkpoint has nothing left to
         train; it still emits one record at the restored state, so the run's
         final record exists."""
-        toks, labels = self._batch(rounds - 1)
-        loss = self._per_node(self.params, toks, labels, self._loss_fn).mean()
+        loss = self._mean([self._per_node(p, toks, labels, self._loss_fn)
+                           for p, (toks, labels) in zip(self._p, self._batch(rounds - 1))])
         rec = self._round_record(rounds - 1, loss, self._sched(rounds - 1), t0)
         self._emit(rec, on_round, verbose, "(resume already complete)")
         return [rec]
@@ -1145,39 +1360,31 @@ class LMCohortTrainer:
         ckpt_path: str = "",
         verbose: bool = False,
     ) -> list[dict]:
-        """Per-round Python loop: the local step and ``engine.mix``, eagerly."""
+        """Per-round Python loop: the local step and the engine's mix,
+        eagerly; sharded, each shard's step on its device and the mix of
+        its slabs."""
         _check_mesh(self.engine, self.device)
+        self._follow_mesh()
         t0 = time.perf_counter()
         if self._begin(rounds):
             return self._finished_resume(rounds, on_round, verbose, t0)
         evals = set(DecentralizedTrainer._eval_rounds(rounds, eval_every))
         cpts = self._ckpt_rounds(rounds, ckpt_every)
-        trace = None
         if self.faulted:
-            trace = self.engine.fault_trace
-            trace.ensure(rounds)
+            self.engine.fault_trace.ensure(rounds)
         history: list[dict] = []
         for r in range(self.start_round, rounds):
-            toks, labels = self._batch(r)
+            batch = self._batch(r)
             lr = self._sched(r).to(self.device)
             if self.faulted:
-                alive = torch.as_tensor(trace.alive(r), device=self.device)
-                p_in = [x.clone() for x in tree_leaves(self.params)]
-                o_in = [x.clone() for x in tree_leaves(self.opt_state)]
-                loss = self._local_step(toks, labels, lr)
-                self._freeze_dead(alive, p_in, o_in)
-                del p_in, o_in
-                # The renormalized faulted mix, and the engine's straggler
-                # ring (one call per round, in order).
-                with torch.no_grad():
-                    _copy_into(self.params, self.engine.mix(self.params, round=r))
+                losses = self._faulted_round(r, batch, lr)
             else:
-                loss = self._local_step(toks, labels, lr)
+                losses = self._local_steps(batch, lr)
                 if self.engine.is_gossip_round(r):
                     self.engine.refresh(r)
-                    self._gossip(lambda q: self.engine.mix([q])[0])
+                    self._gossip(self._mix_leaf)
             if r in evals:
-                rec = self._round_record(r, loss, lr, t0)
+                rec = self._round_record(r, self._mean(losses), lr, t0)
                 history.append(rec)
                 self._emit(rec, on_round, verbose)
             if r in cpts:
@@ -1297,9 +1504,11 @@ class _LMFusedRounds:
             for d, s in zip(self.p_in + self.o_in,
                             tree_leaves(tr.params) + tree_leaves(tr.opt_state)):
                 d.copy_(s)
-        self._loss.copy_(tr._local_step(self.toks, self.labels, tr._sched(self.r)))
+        self._loss.copy_(tr._local_step(tr.params, tr.opt_state, self.toks, self.labels,
+                                        tr._sched(self.r)).mean())
         if self.program.faulted:
-            tr._freeze_dead(self.program.alive_at(self.r), self.p_in, self.o_in)
+            tr._freeze_dead(tr.params, tr.opt_state, self.program.alive_at(self.r),
+                            self.p_in, self.o_in)
             if self.hist is not None:
                 with torch.no_grad():
                     faults_mod.push(tr.params, self.hist, self.r)
@@ -1312,7 +1521,7 @@ class _LMFusedRounds:
                    else faults_mod.publish(self.hist, self.r, prog.f_delay))
             _copy_into(tr.params, prog.apply_period(tr.params, t, r=self.r, pub=pub))
         else:
-            tr._gossip(lambda q: prog.apply_period([q], t)[0])
+            tr._gossip(lambda xs: [prog.apply_period([xs[0]], t)[0]])
 
     def _run(self, key, fn: Callable[[], None]) -> None:
         # A full-width member: the eager run's transients go back to the

@@ -507,9 +507,10 @@ def test_decavg_trainer_across_two_cards_matches_one(cuda, monkeypatch, faults):
 
 
 def test_lm_run_across_two_cards_matches_one(cuda):
-    """LMCohortTrainer.run keeps the cohort on its card and each mix moves
-    the slabs to the other card and back: sparse_sharded over two cards
-    gives sparse's params within 1e-5."""
+    """LMCohortTrainer.run on sparse_sharded with its mesh replaced after
+    construction (4 shards over two cards): the state is re-placed on the
+    new shards and gives sparse's params within 1e-5, gathered to its
+    card."""
     cards = _two_cards()
     want = _lm(cuda, backend="sparse", compress=None)
     want.run(3)
@@ -519,6 +520,29 @@ def test_lm_run_across_two_cards_matches_one(cuda):
     for a, b in zip(tree_leaves(got.params), tree_leaves(want.params)):
         assert a.device == cards[0]
         torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("compress", [None, 0.25])
+def test_lm_sharded_cohort_on_the_cards_gives_the_sparse_bits(cuda, compress):
+    """The tiny cohort's state sharded over 2 shards, one on each of two
+    cards (both on the card when there is one): each shard's slabs on its
+    card, and sparse's bits for the params, both moments, the references
+    and every record's loss and domain_acc."""
+    n = torch.cuda.device_count()
+    devices = [torch.device("cuda", 0), torch.device("cuda", min(1, n - 1))]
+    want = _lm(cuda, backend="sparse", compress=compress)
+    h_want = want.run(3)
+    got = _lm(cuda, backend="sparse_sharded", compress=compress,
+              mesh=mesh.Mesh(devices, ("data",)))
+    h_got = got.run(3)
+    for s, d in enumerate(devices):
+        assert all(x.device == d and x.shape[0] == 2 for x in tree_leaves(got._p[s]))
+    state = [tree_leaves(t.params) + tree_leaves(t.opt_state)
+             + ([] if t.cstate is None else tree_leaves(t.cstate.reference)) for t in (got, want)]
+    for a, b in zip(*state, strict=True):
+        assert torch.equal(a, b)
+    for a, b in zip(h_got, h_want, strict=True):
+        assert a["loss"] == b["loss"] and a["domain_acc"] == b["domain_acc"]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -835,9 +859,9 @@ def test_full_width_adamw_step_keeps_its_dtypes(cuda):
                                     device=cuda)
     assert t.member_params == 1_498_482_688
     t._sched = lambda r: torch.tensor(3e-4, device=cuda)
-    toks, labels = t._batch(0)
+    ((toks, labels),) = t._batch(0)
     emb = t.params["embed"][:, :8].clone()
-    loss = t._local_step(toks, labels, t._sched(0))
+    loss = t._local_step(t.params, t.opt_state, toks, labels, t._sched(0)).mean()
     assert torch.isfinite(loss) and 10.0 < float(loss) < 13.0  # ln(128256) = 11.76
     assert all(p.dtype == torch.bfloat16 for p in tree_leaves(t.params))
     opt = t.opt_state

@@ -128,10 +128,10 @@ def _watch(monkeypatch):
                 events.append(("bytes", "ppermute", dst, slabs[src].nbytes))
         return orig["ppermute"](slabs, pairs, devices)
 
-    def all_gather(slabs, device, *, axis=0):
+    def all_gather(slabs, device, *, axis=0, shard=None):
         # Every shard's slab but the receiver's own (they are equal in size).
         events.append(("bytes", "all_gather", None, sum(s.nbytes for s in slabs[1:])))
-        return orig["all_gather"](slabs, device, axis=axis)
+        return orig["all_gather"](slabs, device, axis=axis, shard=shard)
 
     def psum(parts, devices):
         events.append(("bytes", "psum", None, sum(p.nbytes for p in parts[1:])))

@@ -57,7 +57,7 @@ def lr_probe(dev, smi: str) -> None:
     tr = LMCohortTrainer("ring", cfgbase.get("llama3.2-1b"), nodes=2, backend="dense",
                          compress=None, device=dev)
     init = [x.clone() for x in tree_leaves(tr.params)]
-    (t0, l0), (t1, l1) = tr._batch(0), tr._batch(1)
+    ((t0, l0),), ((t1, l1),) = tr._batch(0), tr._batch(1)
 
     def loss():
         with torch.no_grad():
@@ -69,9 +69,9 @@ def lr_probe(dev, smi: str) -> None:
         tr.opt_state = None
         tr.opt_state = adamw.init(tr.params)
         before = loss()
-        tr._local_step(t0, l0, torch.tensor(lr, device=dev))
+        tr._local_step(tr.params, tr.opt_state, t0, l0, torch.tensor(lr, device=dev))
         one = loss()
-        tr._local_step(t1, l1, torch.tensor(lr, device=dev))
+        tr._local_step(tr.params, tr.opt_state, t1, l1, torch.tensor(lr, device=dev))
         print(f"same-batch probe, lr {lr:g}: member losses on batch 0 {before} before, {one} "
               f"after step 1 (on batch 0), {loss()} after step 2 (on batch 1); {smi}", flush=True)
     del tr, init
@@ -89,7 +89,7 @@ def profile_forward_backward(dev, smi: str) -> None:
 
     tr = LMCohortTrainer("ring", cfgbase.get("llama3.2-1b"), nodes=2, backend="pallas",
                          device=dev)
-    toks, labels = tr._batch(0)
+    ((toks, labels),) = tr._batch(0)
 
     def fwd_bwd():
         leaves = [p.detach().requires_grad_(True) for p in tree_leaves(tr.params)]

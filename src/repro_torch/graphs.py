@@ -12,6 +12,10 @@ to eager execution. On the CPU each call runs ``fn`` itself.
 Kernel launch counts (``repro_torch.kernels.LAUNCHES``) follow the card: a
 wrapper called during capture records its launch into the graph and counts
 it in ``CAPTURED``; every replay adds those launches to ``LAUNCHES``.
+
+Each capture, replay and CPU run is a span (``repro_torch.spans``:
+``piece.capture``, ``piece.replay`` timed on the card, ``piece.eager``)
+with the attrs the owner gives (the piece, its shard and period slot).
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from typing import Callable
 import torch
 
 from repro_torch.kernels import CAPTURED, LAUNCHES
+from repro_torch.spans import span
 
 __all__ = ["Staged"]
 
@@ -34,7 +39,7 @@ class Staged:
     cannot happen during capture); graphs that never run at the same time
     may share a memory ``pool``. Capture and replay run on ``device``
     whatever card is current, so ``stream`` and ``pool`` must be that
-    card's (one of each a card).
+    card's (one of each a card). ``attrs`` label its spans.
     """
 
     def __init__(
@@ -44,10 +49,12 @@ class Staged:
         *,
         stream: torch.cuda.Stream | None = None,
         pool=None,
+        attrs: dict | None = None,
     ):
         self.fn = fn
         self.graph: torch.cuda.CUDAGraph | None = None
         self.launches: dict[str, int] = {}
+        self.attrs = attrs or {}
         if device.type != "cuda":
             return
         before = dict(CAPTURED)
@@ -59,7 +66,8 @@ class Staged:
         gc_was_enabled = gc.isenabled()
         # ``torch.cuda.graph`` and the caching allocator's capture pool read
         # the current device, not the stream's: capture on ``device``.
-        with torch.cuda.device(device), torch.cuda.graph(graph, pool=pool, stream=stream):
+        with (span("piece.capture", **self.attrs), torch.cuda.device(device),
+              torch.cuda.graph(graph, pool=pool, stream=stream)):
             gc.disable()
             try:
                 fn()
@@ -72,9 +80,10 @@ class Staged:
 
     def __call__(self) -> None:
         if self.graph is None:
-            self.fn()
+            with span("piece.eager", **self.attrs):
+                self.fn()
             return
-        with torch.cuda.device(self.device):
+        with span("piece.replay", timed=self.device, **self.attrs), torch.cuda.device(self.device):
             self.graph.replay()  # on the current stream of the capture's card
         for name, n in self.launches.items():
             LAUNCHES[name] += n

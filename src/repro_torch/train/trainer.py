@@ -77,6 +77,7 @@ from repro_torch.launch import steps as ST
 from repro_torch.models import transformer as TF
 from repro_torch.models.mlp import init_mlp, mlp_forward
 from repro_torch.optim import adamw, schedules, sgd
+from repro_torch.spans import span
 from repro_torch.train.losses import softmax_xent
 from repro_torch.train.metrics import (
     accuracy,
@@ -271,26 +272,28 @@ class DecentralizedTrainer:
         ``slabs`` (a sharded run's per-shard param trees, each on its
         shard's device) are evaluated where they live, and only the metrics
         come to the trainer's device, in node order."""
-        parts = [self.params] if slabs is None else slabs
-        test_sets: dict[torch.device, tuple] = {}
-        accs, gaccs = [], []
-        for p in parts:
-            dev = tree_leaves(p)[0].device
-            if dev not in test_sets:
-                test_sets[dev] = self._test_set(x_test, y_test, dev)
-            a, g, _ = self._eval(p, *test_sets[dev])
-            accs.append(a)
-            gaccs.append(g)
-        acc = mesh_mod.gather(accs, self.device).cpu().numpy()
-        with torch.no_grad():
-            cons = (consensus_distance(self.params) if slabs is None
-                    else sharded_consensus_distance(slabs, self.device)).cpu().numpy()
-        return RoundMetrics(
-            r, acc, float(acc.mean()), float(acc.std()),
-            group_acc=(None if self.class_groups is None
-                       else mesh_mod.gather(gaccs, self.device).cpu().numpy()),
-            consensus=cons, wall_s=time.perf_counter() - t0,
-        )
+        with span("trainer.eval", round=r):
+            parts = [self.params] if slabs is None else slabs
+            test_sets: dict[torch.device, tuple] = {}
+            accs, gaccs = [], []
+            for p in parts:
+                dev = tree_leaves(p)[0].device
+                if dev not in test_sets:
+                    with span("eval.test_set"):
+                        test_sets[dev] = self._test_set(x_test, y_test, dev)
+                a, g, _ = self._eval(p, *test_sets[dev])
+                accs.append(a)
+                gaccs.append(g)
+            acc = mesh_mod.gather(accs, self.device).cpu().numpy()
+            with torch.no_grad():
+                cons = (consensus_distance(self.params) if slabs is None
+                        else sharded_consensus_distance(slabs, self.device)).cpu().numpy()
+            return RoundMetrics(
+                r, acc, float(acc.mean()), float(acc.std()),
+                group_acc=(None if self.class_groups is None
+                           else mesh_mod.gather(gaccs, self.device).cpu().numpy()),
+                consensus=cons, wall_s=time.perf_counter() - t0,
+            )
 
     def _gossip(self, mix: Callable[[PyTree], PyTree], params: PyTree) -> PyTree:
         """One gossip exchange through ``mix`` (a params -> params closure).
@@ -422,7 +425,9 @@ class DecentralizedTrainer:
         its period slot. Metrics stream to ``on_round`` after each chunk.
         Without ``x_test`` the run is one chunk. Supported for the dense,
         sparse, sparse_pallas and sparse_sharded backends; others raise (use
-        ``run``). A capture that fails on the card raises.
+        ``run``). A capture that fails on the card raises. The call, its
+        staging, chunks, rounds, each piece's eager run, capture and replay
+        and its evaluations are spans (``repro_torch.spans``).
         """
         if not self.supports_fused:
             raise ValueError(
@@ -432,35 +437,42 @@ class DecentralizedTrainer:
         _check_mesh(self.engine, self.device)
         if rounds < 1:
             return []
-        program = self.engine.program(rounds, kind=self.mix_impl)
-        t0 = time.perf_counter()
-        self._gossip_first(gossip_first)
-        steps = self.loader.steps_per_epoch() * self.local_epochs
-        sharded = program.kind == "sparse_sharded"
-        staged = (_ShardedFusedRounds if sharded else _FusedRounds)(self, program, steps)
-        do_eval = x_test is not None
-        ends = self._eval_rounds(rounds, eval_every) if do_eval else [rounds - 1]
-        history: list[RoundMetrics] = []
-        start = 0
-        try:
-            for end in ends:
-                staged.chunk(self.loader.chunk_indices(start, end - start + 1, steps))
-                for i, r in enumerate(range(start, end + 1)):
-                    staged.round(r, i)
-                start = end + 1
-                self._enter_period(end)
-                if do_eval:
-                    m = self.eval_round(end, x_test, y_test, t0,
-                                        slabs=staged.param_slabs() if sharded else None)
-                    history.append(m)
-                    if on_round is not None:
-                        on_round(m)
-                    self._report(m, verbose)
-            if sharded:
-                staged.gather()
-        finally:
-            staged.close()
-        return history
+        with span("fused.call", rounds=rounds, backend=self.mix_impl):
+            with span("fused.program"):
+                program = self.engine.program(rounds, kind=self.mix_impl)
+            t0 = time.perf_counter()
+            self._gossip_first(gossip_first)
+            steps = self.loader.steps_per_epoch() * self.local_epochs
+            sharded = program.kind == "sparse_sharded"
+            with span("fused.stage"):
+                staged = (_ShardedFusedRounds if sharded else _FusedRounds)(self, program, steps)
+            do_eval = x_test is not None
+            ends = self._eval_rounds(rounds, eval_every) if do_eval else [rounds - 1]
+            history: list[RoundMetrics] = []
+            start = 0
+            try:
+                for end in ends:
+                    with span("fused.chunk"):
+                        staged.chunk(self.loader.chunk_indices(start, end - start + 1, steps))
+                    for i, r in enumerate(range(start, end + 1)):
+                        with span("fused.round", round=r):
+                            staged.round(r, i)
+                    start = end + 1
+                    self._enter_period(end)
+                    if do_eval:
+                        m = self.eval_round(end, x_test, y_test, t0,
+                                            slabs=staged.param_slabs() if sharded else None)
+                        history.append(m)
+                        if on_round is not None:
+                            on_round(m)
+                        self._report(m, verbose)
+                if sharded:
+                    with span("fused.gather"):
+                        staged.gather()
+            finally:
+                with span("fused.close"):
+                    staged.close()
+            return history
 
     def confusion(self, x_test: np.ndarray, y_test: np.ndarray) -> np.ndarray:
         """(N, C, C) per-node row-normalized confusion matrices."""
@@ -555,8 +567,8 @@ class _FusedRounds:
                 compress_mod.compress(params, compress_mod.init(params), k_frac=tr.compress)
         torch.cuda.current_stream(self.device).wait_stream(self.stream)
 
-    def _stage(self, fn) -> Staged:
-        return Staged(fn, self.device, stream=self.stream, pool=self.pool)
+    def _stage(self, fn, **attrs) -> Staged:
+        return Staged(fn, self.device, stream=self.stream, pool=self.pool, attrs=attrs)
 
     def close(self) -> None:
         """Release the graphs now. They hold closures over this object, so
@@ -575,14 +587,15 @@ class _FusedRounds:
         self.r.fill_(r)
         if self.local is None:
             if self.stream is not None:
-                self._warm_up()
-            self.local = self._stage(self._local_steps)
+                with span("piece.eager", piece="warm_up"):
+                    self._warm_up()
+            self.local = self._stage(self._local_steps, piece="local")
         self.local()
         if not self.program.gossip_mask[r]:
             return
         t = int(self.program.period_idx[r])
         if t not in self.mix:
-            self.mix[t] = self._stage(lambda: self._mix(t))
+            self.mix[t] = self._stage(lambda: self._mix(t), piece="mix", slot=t)
         self.mix[t]()
 
 
@@ -721,10 +734,11 @@ class _ShardedFusedRounds:
             buf.copy_(rows)
 
     def _exchange(self, t: int) -> None:
-        got = self.program.exchange(t, [sh.outgoing() for sh in self.shards])
-        for sh, rows in zip(self.shards, got):
-            for buf, x in zip(sh.recv, rows):
-                buf.copy_(x)
+        with span("sharded.exchange", slot=t):
+            got = self.program.exchange(t, [sh.outgoing() for sh in self.shards])
+            for sh, rows in zip(self.shards, got):
+                for buf, x in zip(sh.recv, rows):
+                    buf.copy_(x)
 
     @torch.no_grad()
     def _rows(self, sh: _Shard, t: int) -> None:
@@ -738,7 +752,8 @@ class _ShardedFusedRounds:
             p.copy_((p.float() + (m - ref)).to(p.dtype))
 
     def _run(self, sh: _Shard, key, fn: Callable[[], None]) -> None:
-        _run_piece(sh.graphs, key, fn, sh.dev, self.streams.get(sh.dev), self.pools.get(sh.dev))
+        _run_piece(sh.graphs, key, fn, sh.dev, self.streams.get(sh.dev), self.pools.get(sh.dev),
+                   shard=sh.s)
 
     def round(self, r: int, i: int) -> None:
         """Round ``r``, the chunk's ``i``-th."""
@@ -774,7 +789,8 @@ class _ShardedFusedRounds:
 
 
 def _run_piece(graphs: dict, key, fn: Callable[[], None], device: torch.device,
-               stream: torch.cuda.Stream | None, pool, *, free_first: bool = False) -> None:
+               stream: torch.cuda.Stream | None, pool, *, free_first: bool = False,
+               shard: int | None = None) -> None:
     """Run the piece ``fn`` known as ``key`` on ``device``: eagerly on the
     CPU. On a card, eagerly on the capture ``stream`` the first time (the
     lazy initialisation a warm-up would do: cuBLAS workspaces, autograd,
@@ -782,13 +798,18 @@ def _run_piece(graphs: dict, key, fn: Callable[[], None], device: torch.device,
     time, and replayed after; ``graphs`` holds None for a piece that ran
     once, then its graph. Eager and replayed runs launch the same kernels.
     ``free_first`` returns the eager run's transients to the card before
-    the capture."""
+    the capture. Each run is a span labelled with the piece's name and
+    period slot (``key``: a name, or a name and a slot) and its ``shard``."""
+    attrs = {"piece": key} if isinstance(key, str) else {"piece": key[0], "slot": key[1]}
+    if shard is not None:
+        attrs["shard"] = shard
     if device.type != "cuda":
-        fn()
+        with span("piece.eager", **attrs):
+            fn()
         return
     if key not in graphs:
         graphs[key] = None
-        with torch.cuda.device(device):
+        with span("piece.eager", **attrs), torch.cuda.device(device):
             current = torch.cuda.current_stream(device)
             stream.wait_stream(current)
             with torch.cuda.stream(stream):
@@ -799,7 +820,7 @@ def _run_piece(graphs: dict, key, fn: Callable[[], None], device: torch.device,
         if free_first:
             torch.cuda.synchronize(device)
             torch.cuda.empty_cache()
-        graphs[key] = Staged(fn, device, stream=stream, pool=pool)
+        graphs[key] = Staged(fn, device, stream=stream, pool=pool, attrs=attrs)
     graphs[key]()
 
 

@@ -19,6 +19,8 @@ import torch
 
 from repro_torch.core import decavg, mesh, sparse, topology
 from repro_torch.data.loader import NodeLoader
+from repro_torch import graphs as graphs_mod
+from repro_torch import spans
 from repro_torch.configs import base as cfgbase
 from repro_torch.kernels import LAUNCHES, reset_launches
 from repro_torch.kernels import flash_attention as fa
@@ -360,6 +362,76 @@ def test_an_earlier_runs_graphs_are_released(cuda, monkeypatch):
     monkeypatch.setattr(tr.loader, "batch_at", collecting)
     tr.run_fused(2)
     assert all(torch.isfinite(p).all() for p in tree_leaves(tr.params))
+
+
+@pytest.mark.parametrize("backend", ["dense", "sparse_sharded"])
+def test_spans_time_the_replays_and_count_the_captures(cuda, monkeypatch, backend):
+    """Spans on: every replay of a call carries the card's time between its
+    CUDA events, each graph the call staged is one ``piece.capture`` span,
+    and the ``piece.eager`` spans are the warm-up (dense) or each shard's
+    piece's first run."""
+    graphs = []
+    orig = trainer_mod.Staged
+
+    def staged(*a, **k):
+        graphs.append(orig(*a, **k))
+        return graphs[-1]
+
+    monkeypatch.setattr(trainer_mod, "Staged", staged)
+    tr, x, y = _trainer(cuda, backend)
+    if backend == "sparse_sharded":
+        tr.engine.mesh = mesh.Mesh([torch.device("cuda", 0)] * 2, ("data",))
+    spans.enable()
+    try:
+        tr.run_fused(4, eval_every=2, x_test=x, y_test=y)
+        torch.cuda.synchronize()
+        got = spans.take()
+    finally:
+        spans.disable()
+    replays = [s for s in got if s.name == "piece.replay"]
+    assert replays and all(s.attrs["device_ms"] > 0 for s in replays)
+    assert all("device_ms" not in s.attrs for s in got if s.name != "piece.replay")
+    captures = [s for s in got if s.name == "piece.capture"]
+    assert len(captures) == len(graphs)
+    # dense: the local steps and the one period slot's mix. Two shards: each
+    # shard's local steps, send and rows, run eagerly first.
+    assert len(captures) == (2 if backend == "dense" else 6)
+    assert len([s for s in got if s.name == "piece.eager"]) == (1 if backend == "dense" else 6)
+    per_round = 2 if backend == "dense" else 6
+    assert len(replays) == 4 * per_round - (0 if backend == "dense" else per_round)
+
+
+def test_off_spans_record_no_event_and_take_no_memory(cuda, monkeypatch):
+    """Spans off (the default): a replay and a whole call record no CUDA
+    event, and the replays allocate nothing on the card."""
+    made = []
+    event = torch.cuda.Event
+
+    def counting(*a, **k):
+        made.append(1)
+        return event(*a, **k)
+
+    monkeypatch.setattr(torch.cuda, "Event", counting)
+    assert not spans.enabled()
+    buf = torch.zeros(1024, device=cuda)
+    stream = torch.cuda.Stream(cuda)
+    stream.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(stream):
+        buf.add_(1.0)
+    torch.cuda.current_stream(cuda).wait_stream(stream)
+    g = graphs_mod.Staged(lambda: buf.mul_(2.0).add_(1.0), cuda, stream=stream)
+    g()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    before = torch.cuda.memory_allocated(cuda)
+    for _ in range(10):
+        g()
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated(cuda) == torch.cuda.memory_allocated(cuda) == before
+    tr, x, y = _trainer(cuda, "dense")
+    tr.run_fused(3, eval_every=2, x_test=x, y_test=y)
+    torch.cuda.synchronize()
+    assert not made and spans.take() == []
 
 
 def test_failed_capture_raises_instead_of_running_eagerly(cuda, monkeypatch):

@@ -2,7 +2,7 @@
 """Drive the PyTorch port (src/repro_torch) on one CUDA card, end to end.
 
     python3 chip_smoke.py [--baseline DIR] [--sharded-state] [--pipeline-train]
-                          [--pipeline-cards] [--lm-cards]
+                          [--pipeline-cards] [--lm-cards] [--ell-sum]
 
 ``--baseline DIR`` names a directory holding other versions of
 gossip_mix.cu, sparse_gossip.cu and flash_attention.cu (an earlier commit's,
@@ -13,7 +13,8 @@ with several cards, the run across them). ``--pipeline-train`` runs only
 phase 21's train step, which the full run starts as a child process.
 ``--pipeline-cards`` runs only phases 1, 2 and 21c (the pipeline decoders
 laid over every card). ``--lm-cards`` runs only phases 1, 2 and 17c (the
-LLM cohort's state sharded over the cards).
+LLM cohort's state sharded over the cards). ``--ell-sum`` runs only phases
+1, 2 and 9a (the ELL slot sum kernel).
 
 Phases, in order; any failure exits non-zero, and no phase catches and
 carries on:
@@ -22,7 +23,7 @@ carries on:
                CUDA versions, each card's name and power limit), and the
                first card's name and power limit as nvidia-smi gives them;
 2. build    -- compile every CUDA source of the port (gossip_mix.cu,
-               sparse_gossip.cu and flash_attention.cu), one nvcc each,
+               sparse_gossip.cu, flash_attention.cu and ell_sum.cu), one nvcc each,
                started together, and print ptxas's registers, spills and
                shared memory of each kernel, and the sparse kernels'
                dynamic shared memory and blocks a SM;
@@ -68,7 +69,16 @@ carries on:
                paper's N=100 run agree within 1e-6; and one gossip round of
                each layout through mix_sparse_pallas(blocked=False) (the row
                gather kernel) agrees with mix_sparse;
-9b. sharded -- the node-sharded backends (plain PyTorch, no kernel
+9a. ell_sum -- the ELL slot sum kernel of sparse and sparse_sharded against
+               its plain version, bit for bit (torch.equal), one launch
+               each: the large_n cell's one-shard layout (BA N=4096, 117
+               slots the hub's row, 50,890 f32 columns), a shard of four,
+               D = 1, 10 and 513, an unaligned and a strided source; then
+               at the cell's shape its time on the device alone beside
+               the bytes bound, a copy of the same bytes, the plain version
+               (whole width, and in the auto p_chunk slabs the program ran
+               before) and torch.sparse.mm;
+9b. sharded -- the node-sharded backends (no kernel but the ELL sum
                launches): one mix of the large_n preset's BA N=4096 graph
                (784-64-10 MLP leaves, f32) on sparse_sharded over the
                default mesh (one shard per card) and over 8 shards on the
@@ -83,7 +93,8 @@ carries on:
                identical records, both through the trainer with identical
                params and momentum; and the large_n_smoke preset through
                run_sweep (every run fused);
-9c. state    -- the node state sharded end to end (no kernel launch): the
+9c. state    -- the node state sharded end to end (no kernel but the ELL
+               sum launches): the
                preset's N=4096 sparse_sharded run as written, through
                run_spec (run_fused), (a) on the default mesh (one shard per
                card) and (b) on 4 shards of cuda:0, each within 1e-5 of the
@@ -171,7 +182,7 @@ carries on:
                uniform rows of the widest leaf's shape, and the
                fused path's full-width round (sparse_pallas, CUDA graphs);
 17c. lm_cards -- the LLM cohort's state sharded over the cards (no kernel
-               launch): (a) phase 17's full-width cohort (2 members, bf16,
+               but the ELL sum launches): (a) phase 17's full-width cohort (2 members, bf16,
                AdamW, CHOCO 0.1, batch 4 x 128, lr 3e-5, a ring, 4 steps) in
                process on sparse_sharded over 2 shards (on two cards, or
                both on cuda:0 with one) against sparse on cuda:0: each
@@ -589,6 +600,12 @@ def sparse_occupancy(lib) -> list[str]:
     return out
 
 
+def other_kernels(launches: dict[str, int]) -> dict[str, int]:
+    """The launches of every kernel but the ELL sum, which the sparse and
+    sparse_sharded mixes launch."""
+    return {k: v for k, v in launches.items() if v and k != "ell_sum"}
+
+
 def spread(times: list[float]) -> str:
     return "-".join(f"{t:.4f}" for t in sorted(times)) if times else "n/a"
 
@@ -640,6 +657,8 @@ def main() -> int:
     ap.add_argument("--lm-cards", action="store_true",
                     help="run only phases 1, 2 and 17c (the LLM cohort's state sharded over "
                          "the cards)")
+    ap.add_argument("--ell-sum", action="store_true",
+                    help="run only phases 1, 2 and 9a (the ELL slot sum kernel)")
     ap.add_argument("--pipeline-train", action="store_true",
                     help="run only phase 21's build_train_step (the full run starts it as a "
                          "child process)")
@@ -663,6 +682,7 @@ def main() -> int:
     from repro_torch.experiments.spec import ExperimentSpec
     from repro_torch.experiments.store import ResultsStore
     from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels import ell_sum as es
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gossip_mix as gm
     from repro_torch.kernels import sparse_gossip as sg
@@ -680,11 +700,12 @@ def main() -> int:
 
     # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=3) as pool:
-        libs = [f.result() for f in [pool.submit(m.build) for m in (gm, sg, fa)]]
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        libs = [f.result() for f in [pool.submit(m.build) for m in (gm, sg, fa, es)]]
     gm._library()
     sg.load()
     fa._library()
+    es.load()
     phase("build", f"{', '.join(lib.name for lib in libs)} built and loaded in "
                    f"{time.perf_counter() - t0:.2f} s")
     for lib in libs:
@@ -708,6 +729,10 @@ def main() -> int:
     if args.lm_cards:
         lm_cards(smi)
         laps.lap("17c lm_cards")
+        return 0
+    if args.ell_sum:
+        ell_sum_checks(dev, smi)
+        laps.lap("9a ell_sum")
         return 0
 
     # 3. kernel against plain, on the card
@@ -880,7 +905,9 @@ def main() -> int:
     laps.lap("8 stimes")
     large_n_launches = large_n_main_path(dev, kind)
     laps.lap("9 large_n")
-    sharded_main_path(dev, kind, smi)
+    ell_times = ell_sum_checks(dev, smi)
+    laps.lap("9a ell_sum")
+    large_n_launches["ell_sum"] = sharded_main_path(dev, kind, smi)
     laps.lap("9b sharded")
     sharded_state_path(smi)
     laps.lap("9c state")
@@ -958,6 +985,7 @@ def main() -> int:
               sparse_err["sparse_gossip"]),
         entry("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention.py:101", flash_times, flash_err),
+        entry("ell_sum", "src/repro_torch/kernels/csrc/ell_sum.cu", None, ell_times, 0.0),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -1239,9 +1267,75 @@ def large_n_main_path(dev, kind: str) -> dict[str, int]:
     return launches
 
 
-def sharded_main_path(dev, kind: str, smi: str) -> None:
+def ell_sum_checks(dev, smi: str) -> dict:
+    """Phase 9a: the ELL slot sum kernel against its plain version, bit for
+    bit, one launch a case; then its time at the large_n cell's shape on the
+    device alone. Returns the kernels line's times."""
+    from repro_torch.core import sparse, topology
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels import ell_sum as es
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    csr = sparse.csr_from_graph(topology.make("ba:n=4096,m=2", seed=0))
+
+    def view(shards: int):
+        return sparse.ShardedELL.from_csr(sparse.shard_csr(csr, shards), dev).shard_views(
+            [dev] * shards)[0]
+
+    def rand(h: int, d: int) -> torch.Tensor:
+        return torch.rand(h, d, generator=gen, device=dev) * 2 - 1
+
+    one, four = view(1), view(4)
+    d_cell = sum(LARGE_N_LEAF_D)
+    ring_idx, ring_val = (torch.as_tensor(a, device=dev) for a in sparse.ell_from_csr(
+        sparse.csr_from_graph(topology.make("ring:n=37", seed=0))))
+    unaligned = rand(1, 37 * 64 + 1)[0, 1:].view(37, 64)
+    cases = [("BA N=4096 one shard", one.idx, one.val, rand(one.halo_width, d_cell)),
+             ("BA N=4096 shard 0 of 4", four.idx, four.val, rand(four.halo_width, 640))]
+    cases += [(f"ring:n=37 D={d}", ring_idx, ring_val, rand(37, d)) for d in (1, 10, 513)]
+    cases += [("ring:n=37 unaligned", ring_idx.int(), ring_val, unaligned),
+              ("ring:n=37 strided", ring_idx, ring_val, rand(37, 67)[:, 2:66])]
+    for name, idx, val, src in cases:
+        want = es.ell_sum_ref(idx, val, src)
+        reset_launches()
+        got = es.ell_sum(idx, val, src)
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        phase("ell_sum", f"{name}: R={idx.shape[0]} K={idx.shape[1]} H={src.shape[0]} "
+                         f"D={src.shape[1]}: identical to the plain version: {same}; launches "
+                         f"{LAUNCHES['ell_sum']}")
+        if not same or LAUNCHES["ell_sum"] != 1 or other_kernels(LAUNCHES):
+            fail(f"ell_sum {name}: identical {same}, launches {dict(LAUNCHES)}")
+        del want, got
+    # Times at the cell's shape (cold L2: each call reads 834 MB).
+    idx, val, src = cases[0][1:]
+    live = int((val != 0).sum())
+    r, d = idx.shape[0], src.shape[1]
+    bound = (2 * r * d * 4 + live * 8) / HBM_BYTES_PER_S * 1e3
+    t_kernel = device_ms(lambda: es.ell_sum(idx, val, src), reps=20)
+    t_copy = device_ms(lambda: src.clone(), reps=20)
+    t_plain = time_ms(lambda: es.ell_sum_ref(idx, val, src), reps=3, warmup=1)
+    chunk = sparse.auto_p_chunk(live)
+    t_chunked = time_ms(lambda: torch.cat([es.ell_sum_ref(idx, val, src[:, c:c + chunk])
+                                           for c in range(0, d, chunk)], dim=1), reps=2, warmup=1)
+    w = torch.sparse_csr_tensor(torch.as_tensor(csr.indptr, dtype=torch.int64, device=dev),
+                                torch.as_tensor(csr.indices, dtype=torch.int64, device=dev),
+                                torch.as_tensor(csr.values, dtype=torch.float32, device=dev),
+                                size=(r, r))
+    t_lib = device_ms(lambda: torch.sparse.mm(w, src), reps=5)
+    phase("ell_sum", f"BA N=4096 one shard, {r} x {d} f32, K={idx.shape[1]}, {live} live slots: "
+                     f"kernel {t_kernel:.4f} ms on the device alone, bytes bound {bound:.4f} ms "
+                     f"({100 * bound / t_kernel:.1f}%), a copy of the source {t_copy:.4f} ms; "
+                     f"plain version {t_plain:.2f} ms whole width, {t_chunked:.2f} ms in "
+                     f"p_chunk={chunk} slabs (eager); torch.sparse.mm {t_lib:.4f} ms; {smi}")
+    return {"ms": t_kernel, "plain_ms": t_plain, "bound_ms": bound, "bound_by": "bytes",
+            "library_ms": t_lib}
+
+
+def sharded_main_path(dev, kind: str, smi: str) -> int:
     """Phase 9b: the node-sharded backends, and the large_n preset's N=4096
-    sparse_sharded run at full size. Plain PyTorch: no kernel launches."""
+    sparse_sharded run at full size. No kernel but the ELL sum launches;
+    returns its launches."""
     from repro_torch.core import decavg, mesh, mixing, sparse, topology
     from repro_torch.experiments import presets, runner
     from repro_torch.experiments.store import ResultsStore
@@ -1393,8 +1487,10 @@ def sharded_main_path(dev, kind: str, smi: str) -> None:
         phase("sharded", f"large_n_smoke: {len(specs)} runs completed, all fused ("
                          + ", ".join(f"{s.backend}: mean_acc {finals[s.run_id]['final']['mean_acc']:.4f}"
                                      for s in specs) + ")")
-    if any(LAUNCHES.values()):
-        fail(f"the sharded phase launched a hand-written kernel: {dict(LAUNCHES)}")
+    if other_kernels(LAUNCHES) or not LAUNCHES["ell_sum"]:
+        fail(f"the sharded phase launched {dict(LAUNCHES)}: want the ELL sum alone")
+    phase("sharded", f"ell_sum launches {LAUNCHES['ell_sum']}, no other kernel")
+    return LAUNCHES["ell_sum"]
 
 
 def sharded_state_path(smi: str) -> None:
@@ -1403,7 +1499,8 @@ def sharded_state_path(smi: str) -> None:
     sharded end to end, (a) on the default mesh (one shard per card) and
     (b) on 4 shards of cuda:0; each held to the same spec on sparse. With
     two or more cards, the run across them, sharded and permute through run,
-    and both gossip kernels on the last card. No kernel launches otherwise."""
+    and both gossip kernels on the last card. No kernel but the ELL sum
+    launches otherwise."""
     from repro_torch.core import decavg, mesh, sparse
     from repro_torch.experiments import presets, runner
     from repro_torch.experiments.store import ResultsStore
@@ -1527,8 +1624,8 @@ def sharded_state_path(smi: str) -> None:
     del want
     gc.collect()
     torch.cuda.empty_cache()
-    if any(LAUNCHES.values()):
-        fail(f"the sharded state phase launched a hand-written kernel: {dict(LAUNCHES)}")
+    if other_kernels(LAUNCHES) or not LAUNCHES["ell_sum"]:
+        fail(f"the sharded state phase launched {dict(LAUNCHES)}: want the ELL sum alone")
     if cards < 2:
         phase("state", "one card: the run across cards (slabs on distinct cards, copies between "
                        "them) was not exercised")
@@ -2678,8 +2775,8 @@ def lm_cards(smi: str) -> None:
         fail(f"17c (a): the sharded cohort leaves sparse: params {diff}, losses {losses}")
     del got, want, runs
     free_card()
-    if any(LAUNCHES.values()):
-        fail(f"17c launched a hand-written kernel: {dict(LAUNCHES)}")
+    if other_kernels(LAUNCHES) or not LAUNCHES["ell_sum"]:
+        fail(f"17c launched {dict(LAUNCHES)}: want the ELL sum alone")
     if cards < 4:
         phase("lm_cards", f"{cards} card(s): (b), 8 full-width members on four cards, was not "
                           "exercised")

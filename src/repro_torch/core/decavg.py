@@ -14,9 +14,10 @@ The execution paths, numerically equivalent (tests hold them to 3e-5):
                     flattened leaf (kernels/gossip_mix.py), f32 accumulation.
                     The backend keeps the reference's name ``"pallas"`` so one
                     spec means the same run in both packages.
-3. ``sparse``     — W as CSR, mixed over its ELL view in plain PyTorch in a
-                    fixed order (core/sparse.py ``mix_ell``): O(E * P), the
-                    default at N >= 512.
+3. ``sparse``     — W as CSR, mixed over its ELL view in a fixed order
+                    (core/sparse.py ``mix_ell``: one launch of the ELL sum
+                    kernel a leaf on the card, plain PyTorch on the CPU, the
+                    same bits): O(E * P), the default at N >= 512.
 4. ``sparse_pallas`` — the CUDA sparse kernels (kernels/sparse_gossip.py):
                     the 8-row-blocked ELL kernel on the card.
 5. The node-sharded paths, over a ``core.mesh.Mesh`` of S shards (the
@@ -259,12 +260,14 @@ def _halo_buffer(view: sparse.ShardView, src: torch.Tensor, got: list[torch.Tens
 
 def _shard_rows(view: sparse.ShardView, buf: torch.Tensor, p_chunk: int | None) -> torch.Tensor:
     """One shard's rows: its ELL slots summed over its halo buffer in slot
-    order (``sparse._ell_sum``), in ``p_chunk`` column slabs when set."""
+    order (``kernels.ops.ell_sum``). On the CPU in ``p_chunk`` column slabs when
+    set, which bound the plain version's gather buffer; on the card one
+    launch of the ELL sum kernel over the whole width, which needs none."""
     p = buf.shape[1]
-    if p_chunk is not None and p_chunk < p:
-        return torch.cat([sparse._ell_sum(view.idx, view.val, buf[:, c:c + p_chunk])
+    if p_chunk is not None and p_chunk < p and buf.device.type == "cpu":
+        return torch.cat([ops.ell_sum(view.idx, view.val, buf[:, c:c + p_chunk])
                           for c in range(0, p, p_chunk)], dim=1)
-    return sparse._ell_sum(view.idx, view.val, buf)
+    return ops.ell_sum(view.idx, view.val, buf)
 
 
 def _shard_rows_faulted(view: sparse.ShardView, buf: torch.Tensor, cur: torch.Tensor,
@@ -357,8 +360,8 @@ def mix_sharded_sparse(
          ``sparse.mix_ell`` sums the whole matrix: the same bits as the
          ``sparse`` backend for any S and either schedule.
 
-    The rows come back to the params' device. ``p_chunk`` sums the buffer
-    in column slabs of that width.
+    The rows come back to the params' device. ``p_chunk`` sums a CPU
+    buffer in column slabs of that width (see ``_shard_rows``).
     """
     axes, _, devices = _shards_of(mesh, node_axis)
     views = _views_of(shcsr, devices, axes)
@@ -708,7 +711,9 @@ _BACKEND_INFO = {
         "fused": True,
         "faults": True,
         "notes": "ELL gather + fixed-order f32 sum (deterministic, no "
-                 "atomics); default at N >= 512",
+                 "atomics): one launch of the hand-written CUDA ELL sum "
+                 "kernel (kernels/csrc/ell_sum.cu) a leaf on the card, plain "
+                 "torch on CPU tensors, the same bits; default at N >= 512",
     },
     "sparse_pallas": {
         "requires": "CUDA sm_90a (plain torch on CPU tensors); W stored blocked ELL",
@@ -779,8 +784,10 @@ class GossipEngine:
         "reduce_scatter" for ``sharded``).
       halo_schedule: sparse_sharded halo assembly, "allgather", "ring" or
         "auto" (the ring whenever its modeled wire undercuts the allgather's).
-      sparse_p_chunk: feature-axis chunk for the sparse gather: an int,
-        "auto" (sized from nnz to a ~16 MiB transient), or None (off).
+      sparse_p_chunk: feature-axis chunk for the plain sparse gather on
+        the CPU: an int, "auto" (sized from nnz to a ~16 MiB transient), or
+        None (off). The card's ELL sum kernel needs no gather buffer and
+        sums the whole width in one launch whatever it is.
       faults: a fault spec (core/faults.py grammar) or ``FaultSchedule``;
         needs a fault-capable backend (dense, sparse, sparse_sharded) and
         refuses ``sparse_p_chunk``. ``mix`` then needs ``round=``.

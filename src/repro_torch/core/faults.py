@@ -44,8 +44,8 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from repro_torch.core.sparse import _ell_sum
 from repro_torch.core.topology import TopologySchedule, _parse_value
+from repro_torch.kernels import ops
 from repro_torch.tree import tree_leaves, tree_map
 
 __all__ = [
@@ -505,9 +505,9 @@ def faulted_ell_rows(
     mix pass ``cur`` through bit-unchanged."""
     vn, okr, dcoef, vn_od = coefs
     if stale:
-        out = _ell_sum(idx, vn_od, src) + dcoef[:, None] * cur
+        out = ops.ell_sum(idx, vn_od, src) + dcoef[:, None] * cur
     else:
-        out = _ell_sum(idx, vn, src)
+        out = ops.ell_sum(idx, vn, src)
     return torch.where(okr, out, cur)
 
 

@@ -6,15 +6,17 @@ keeps the reference's layouts and their numpy builders (the same arrays, byte
 for byte) and applies one DecAvg round ``out[i] = sum_e W[i, j_e] P[j_e]``
 in two ways, numerically close to ``decavg.mix_dense``:
 
-1. ``mix_sparse``        plain PyTorch over the ELL view of the CSR (each
-                         row's entries padded to K slots of weight 0): for
-                         k = 0..K-1, gather row ``idx[:, k]`` of P, scale it
-                         and add it, in f32. The order is fixed and there are
-                         no atomics, so every run on every device gives the
-                         same bits, and trailing zero-weight slots add exact
-                         zeros (the loop and fused paths stay bit-identical).
-                         The reference's ``segment_sum`` would be a CUDA
-                         scatter with atomics here.
+1. ``mix_sparse``        the ELL view of the CSR (each row's entries
+                         padded to K slots of weight 0): for k = 0..K-1,
+                         gather row ``idx[:, k]`` of P, scale it and add it,
+                         in f32 (``kernels/ell_sum.py``: one launch of a
+                         hand-written kernel on the card, plain PyTorch on
+                         the CPU, the same bits). The order is fixed and
+                         there are no atomics, so every run on every device
+                         gives the same bits, and zero-weight slots add
+                         nothing (the loop and fused paths stay
+                         bit-identical). The reference's ``segment_sum``
+                         would be a CUDA scatter with atomics here.
 2. ``mix_sparse_pallas`` the hand-written CUDA kernels
                          (``kernels/sparse_gossip.py``): the 8-row-blocked
                          ELL kernel (``blocked=True``) or the scalar ELL row
@@ -286,23 +288,17 @@ def stack_block_ell(
     return idx, val
 
 
-def _ell_sum(idx: torch.Tensor, val: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:
-    """sum_k val[:, k] * flat[idx[:, k]] in k order; ``flat`` is f32."""
-    out = flat.index_select(0, idx[:, 0]).mul_(val[:, :1])
-    for k in range(1, idx.shape[1]):
-        out.add_(flat.index_select(0, idx[:, k]).mul_(val[:, k : k + 1]))
-    return out
-
-
 def mix_ell(
     idx: torch.Tensor, val: torch.Tensor, params: PyTree, *, p_chunk: int | None = None
 ) -> PyTree:
     """One DecAvg round with W in ELL form (device tensors: ``idx`` (N, K)
     int64, ``val`` (N, K) f32), f32 accumulation in a fixed slot order.
 
-    ``p_chunk`` splits the feature axis so the transient gather buffer is
-    O(N * p_chunk) instead of O(N * P) per leaf (each column's sum is the
-    same either way).
+    ``p_chunk`` splits the feature axis so the plain version's transient
+    gather buffer is O(N * p_chunk) instead of O(N * P) per leaf (each
+    column's sum is the same either way). It applies to CPU tensors only:
+    on the card each leaf is one launch of the ELL sum kernel over its whole
+    width, which allocates no gather buffer.
     """
     n = idx.shape[0]
 
@@ -311,13 +307,13 @@ def mix_ell(
             raise ValueError(f"leaf leading axis {leaf.shape[0]} != num_nodes {n}")
         flat = leaf.reshape(n, -1).float()
         p = flat.shape[1]
-        if p_chunk is not None and p_chunk < p:
+        if p_chunk is not None and p_chunk < p and flat.device.type == "cpu":
             out = torch.cat(
-                [_ell_sum(idx, val, flat[:, c : c + p_chunk]) for c in range(0, p, p_chunk)],
+                [ops.ell_sum(idx, val, flat[:, c : c + p_chunk]) for c in range(0, p, p_chunk)],
                 dim=1,
             )
         else:
-            out = _ell_sum(idx, val, flat)
+            out = ops.ell_sum(idx, val, flat)
         return out.reshape(leaf.shape).to(leaf.dtype)
 
     return tree_map(leaf_mix, params)

@@ -72,7 +72,7 @@ from repro_torch.core import mesh as mesh_mod
 from repro_torch.core.topology import Graph, TopologySchedule
 from repro_torch.data.loader import NodeLoader
 from repro_torch.graphs import Staged
-from repro_torch.kernels import sparse_gossip
+from repro_torch.kernels import ell_sum, sparse_gossip
 from repro_torch.launch import steps as ST
 from repro_torch.models import transformer as TF
 from repro_torch.models.mlp import init_mlp, mlp_forward
@@ -548,8 +548,10 @@ class _FusedRounds:
     def _warm_up(self) -> None:
         """Run the round's operations on scratch copies on the capture stream,
         so lazy initialisation happens before capture. The sparse_pallas mix
-        is the CUDA kernel alone: its module is loaded, not launched, so no
-        warm-up launch is counted against the run."""
+        and the unfaulted sparse mix are a hand-written kernel alone: its
+        module is loaded, not launched, so no warm-up launch is counted
+        against the run. A faulted sparse mix (masks and renormalisation in
+        plain PyTorch around the ELL sums) is warmed up whole."""
         tr = self.trainer
         params = tree_map(torch.clone, tr.params)
         momentum = tree_map(torch.clone, tr.momentum)
@@ -561,6 +563,8 @@ class _FusedRounds:
                     tr._sgd_step(params, momentum, x, y)
             if self.program.kind == "sparse_pallas":
                 sparse_gossip.load(self.device)
+            elif self.program.kind == "sparse" and not self.program.faulted:
+                ell_sum.load(self.device)
             else:
                 self.program.apply_period(params, 0, r=self.r)
             if tr.compress is not None:

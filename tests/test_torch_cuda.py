@@ -17,12 +17,13 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import decavg, mesh, sparse, topology
+from repro_torch.core import decavg, faults, mesh, sparse, topology
 from repro_torch.data.loader import NodeLoader
 from repro_torch import graphs as graphs_mod
 from repro_torch import spans
 from repro_torch.configs import base as cfgbase
 from repro_torch.kernels import LAUNCHES, reset_launches
+from repro_torch.kernels import ell_sum as es
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gossip_mix as gm
 from repro_torch.kernels import sparse_gossip as sg
@@ -478,7 +479,9 @@ def test_sparse_sharded_is_sparse_to_the_bit(cuda, shards, halo, topology_spec):
         assert all(torch.equal(a, b) for a, b in zip(tree_leaves(got), tree_leaves(want)))
     reset_launches()
     eng.mix(params)
-    assert not any(LAUNCHES.values())  # plain PyTorch: no hand-written kernel
+    torch.cuda.synchronize()
+    assert LAUNCHES["ell_sum"] == shards  # one ELL sum a shard, over all leaves side by side
+    assert sum(LAUNCHES.values()) == shards  # and no other kernel
 
 
 @pytest.mark.parametrize("faults", [None, "churn:p_leave=1.0,p_join=0.0,frac=0.25,start=2"
@@ -516,6 +519,121 @@ def test_fused_sharded_rounds_replay_as_cuda_graphs(cuda, monkeypatch, faults):
         runs[name] = tree_leaves(tr.params) + tree_leaves(tr.momentum)
     for a, b, c in zip(runs["loop"], runs["fused"], runs["sparse"]):
         assert torch.equal(a, b) and torch.equal(b, c)
+
+
+# -- the ELL slot sum kernel ---------------------------------------------------------
+
+
+def _view(spec: str, shards: int, s: int, dev) -> sparse.ShardView:
+    csr = sparse.csr_from_graph(topology.make(spec, seed=0))
+    return sparse.ShardedELL.from_csr(sparse.shard_csr(csr, shards), dev).shard_views(
+        [dev] * shards)[s]
+
+
+def _ell_case(case: str, dev):
+    """(idx, val, src) of one case: the large_n cell's one-shard layout at the
+    member's width, a shard of four (H != R), narrow widths, an unaligned
+    source, an all-padding row, faulted weights with zeros."""
+    gen = torch.Generator(device=dev).manual_seed(sum(map(ord, case)))
+    if case in ("ba4096_one_shard", "shard_of_four", "faulted"):
+        shards = {"ba4096_one_shard": 1, "shard_of_four": 4, "faulted": 2}[case]
+        v = _view("ba:n=4096,m=2", shards, shards - 1 if case == "faulted" else 0, dev)
+        d = 50890 if case == "ba4096_one_shard" else 640
+        val = v.val
+        if case == "faulted":
+            keep = torch.rand(v.val.shape, generator=gen, device=dev) < 0.7
+            alive = torch.rand(v.val.shape[0], generator=gen, device=dev) < 0.8
+            vn, _, _, vn_od = faults.faulted_ell_coefs(v.val, keep, alive, v.is_diag)
+            assert bool((vn == 0).any()) and bool((vn_od == 0).any())
+            val = vn_od
+        return v.idx, val, torch.randn(v.halo_width, d, generator=gen, device=dev)
+    idx, val = _ring_ell(37, dev)
+    if case.startswith("d"):
+        return idx, val, torch.randn(37, int(case[1:]), generator=gen, device=dev)
+    if case == "unaligned":  # contiguous rows from a base 4 bytes past a 16-byte boundary
+        flat = torch.randn(37 * 64 + 1, generator=gen, device=dev)
+        return idx, val, flat[1:].view(37, 64)
+    if case == "strided":  # a column slice: rows 67 values apart
+        return idx, val, torch.randn(37, 67, generator=gen, device=dev)[:, 2:66]
+    assert case == "padding_row"
+    val = val.clone()
+    val[5] = 0.0
+    return idx.int(), val, torch.randn(37, 96, generator=gen, device=dev)
+
+
+def _ring_ell(n: int, dev):
+    idx, val = sparse.ell_from_csr(sparse.csr_from_graph(topology.make(f"ring:n={n}", seed=0)))
+    return torch.as_tensor(idx, device=dev), torch.as_tensor(val, device=dev)
+
+
+@pytest.mark.parametrize("case", ["ba4096_one_shard", "shard_of_four", "d1", "d10", "d513",
+                                  "unaligned", "strided", "padding_row", "faulted"])
+def test_ell_sum_is_its_plain_version_to_the_bit(cuda, case):
+    """One launch, the plain version's bits under torch.equal; captured in a
+    CUDA graph and replayed, the same bits again."""
+    idx, val, src = _ell_case(case, cuda)
+    want = es.ell_sum_ref(idx, val, src)
+    reset_launches()
+    got = es.ell_sum(idx, val, src)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ell_sum"] == 1 and sum(LAUNCHES.values()) == 1
+    assert got.shape == want.shape and torch.equal(got, want)
+    if case == "padding_row":
+        assert not got[5].any()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        replayed = es.ell_sum(idx, val, src)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert LAUNCHES["ell_sum"] == 1  # a capture records, it does not launch
+    assert torch.equal(replayed, want)
+
+
+def test_ell_sum_past_two_to_the_31_values(cuda):
+    """R x D above 2^31 f32 values (and source offsets past it): each row,
+    summed over sources at both ends of the source, is its plain version."""
+    d = (1 << 29) + 3
+    src = torch.empty(4, d, device=cuda)
+    for i in range(4):
+        src[i].uniform_(-1, 1, generator=torch.Generator(device=cuda).manual_seed(i))
+    idx = torch.tensor([[3, 0], [2, 1], [1, 3], [0, 2]], device=cuda)
+    val = torch.tensor([[0.25, 0.75], [0.5, 0.5], [1.0, 0.0], [0.3, 0.7]], device=cuda)
+    reset_launches()
+    got = es.ell_sum(idx, val, src)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ell_sum"] == 1 and got.numel() > 2**31
+    for i in range(4):
+        assert torch.equal(got[i], es.ell_sum_ref(idx[i:i + 1], val[i:i + 1], src)[0]), i
+
+
+def test_ell_sum_launches_on_every_card(cuda):
+    """The kernel loads on each card and launches there on its tensors."""
+    _two_cards()
+    for c in range(torch.cuda.device_count()):
+        dev = torch.device("cuda", c)
+        idx, val, src = _ell_case("d513", dev)
+        reset_launches()
+        got = es.ell_sum(idx, val, src)
+        torch.cuda.synchronize(dev)
+        assert LAUNCHES["ell_sum"] == 1 and got.device == dev
+        assert torch.equal(got, es.ell_sum_ref(idx, val, src))
+
+
+@pytest.mark.parametrize("backend", ["sparse", "sparse_sharded"])
+def test_fused_rounds_count_one_ell_sum_a_leaf_or_a_shard(cuda, backend):
+    """run_fused's gossip rounds through the kernel: one launch a leaf a
+    round on sparse, one a shard a round on sparse_sharded (8 shards), eager,
+    captured or replayed alike; the warm-up launches none."""
+    tr, _, _ = _trainer(cuda, backend)
+    if backend == "sparse_sharded":
+        tr.engine.mesh = mesh.Mesh([torch.device("cuda", 0)] * 8, ("data",))
+    reset_launches()
+    tr.run_fused(5)
+    torch.cuda.synchronize()
+    per_round = 8 if backend == "sparse_sharded" else len(tree_leaves(tr.params))
+    assert LAUNCHES["ell_sum"] == 5 * per_round and sum(LAUNCHES.values()) == 5 * per_round
 
 
 def test_trainer_refuses_a_mesh_without_its_card(cuda):

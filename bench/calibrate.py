@@ -1,5 +1,6 @@
 """The readings that a cell's limits are set from, in one process at the
-cell's own size, with no timed window:
+cell's own size, with no timed window, for the cells of the ``mlp`` kind
+(``bench/kinds/mlp.py``):
 
 - ``sound``: the program as it is, one reading of the five numbers a seed;
 - ``control``: the reference put in the program's place, computed in TF32;
@@ -39,8 +40,9 @@ def main(argv=None) -> int:
 
     import torch
 
-    from bench import check, faults, harness
+    from bench import faults, harness
     from bench.inputs import make_inputs
+    from bench.kinds import mlp
 
     cell = harness.load_cell(args.workload)
     devices = [torch.device("cuda", i) for i in range(cell.chips)]
@@ -57,20 +59,19 @@ def main(argv=None) -> int:
     for seed, todo in roles.items():
         inputs = make_inputs(cell.config, cell.traffic, seed, devices[0])
         t0 = time.perf_counter()
-        ref = harness.reference_side(cell, inputs, devices[0])
+        ref = mlp.reference_side(cell, inputs, devices[0])
         harness.sync(devices)
         t_ref = time.perf_counter() - t0
         for role in todo:
             t0 = time.perf_counter()
             if role == "control":
-                prog = harness.reference_side(cell, inputs, devices[0], precision="tf32")
+                prog = mlp.reference_side(cell, inputs, devices[0], precision="tf32")
             else:
                 with faults.planted(None if role == "sound" else role):
-                    trainer, _, _, prog = harness.first_call(cell, inputs, devices)
-                del trainer
+                    prog = mlp.Run(cell, inputs, devices).prog
             harness.sync(devices)
             rec = {"cell": cell.name, "role": role, "seed": seed,
-                   "numbers": check.gaps(prog, ref), "prog_s": time.perf_counter() - t0,
+                   "numbers": mlp.gaps(prog, ref), "prog_s": time.perf_counter() - t0,
                    "reference_s": t_ref, "device": kind}
             line = json.dumps(rec)
             print(line, flush=True)

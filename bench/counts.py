@@ -15,18 +15,12 @@ from __future__ import annotations
 
 import json
 from pathlib import Path
-from typing import Sequence
 
-__all__ = ["param_count", "sgd_flops", "eval_flops", "mix_flops", "mix_bytes", "window_flops",
+__all__ = ["sgd_flops", "eval_flops", "mix_flops", "mix_bytes", "window_flops",
            "peaks_for"]
 
 F32 = 4
 INDEX = 4
-
-
-def param_count(dims: Sequence[int]) -> int:
-    """Weights and biases of an MLP with widths ``dims``."""
-    return sum(a * b + b for a, b in zip(dims[:-1], dims[1:]))
 
 
 def sgd_flops(p: int, batch: int, steps: int, n: int) -> int:

@@ -3,19 +3,16 @@ traced run, and the comparison with the plain reference.
 
 Everything a cell is made of is found by name: the cell in
 ``BENCHMARK.json``, its configuration in the file the manifest names, its
-traffic in ``bench/traffic/<traffic>.json``, its per-layer metrics in
+traffic in ``bench/traffic/<traffic>.json``, what its configuration's kind
+of run needs in ``bench/kinds/<kind>.py`` (``bench/kinds/__init__.py`` says
+what such a module holds), its per-layer metrics in
 ``bench/metrics/<metric>.py`` (each a ``read(ctx)`` that returns a number,
 or None where it finds nothing to read) and its limits in
 ``bench/limits/<cell>.json``.
 
-The window drives ``DecentralizedTrainer.run_fused``, on a trainer built as
-the runner builds one for a spec: each call is one spec's run of the
-traffic's ``rounds_per_call`` rounds at its ``eval_every``, with its staging
-and CUDA-graph capture; the state carries from call to call and each call
-draws fresh batches (``NodeLoader``'s ``index_fn``). Set-up ends with one
-such call, call 0, whose rounds up to the traffic's ``check_round`` the
-reference replays afterwards: the state at that round, and the evaluation
-records up to its ``records_round``.
+Set-up is the kind's: it makes the inputs from the seed, builds the program
+and runs call 0, which the kind's reference replays once the window has
+closed. The window repeats the kind's call, each on fresh draws.
 """
 
 from __future__ import annotations
@@ -33,10 +30,8 @@ import numpy as np
 import torch
 
 from bench import check, counts, trace
-from bench.inputs import Inputs, make_inputs
-from bench.reference import decavg as reference
 
-__all__ = ["ROOT", "FORBIDDEN", "Cell", "Context", "load_cell", "run"]
+__all__ = ["ROOT", "FORBIDDEN", "Cell", "Context", "load_cell", "load_kind", "run"]
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
@@ -78,63 +73,19 @@ def load_cell(name: str, *, root: Path = ROOT, overrides: dict | None = None) ->
                 end_to_end)
 
 
-class _Feed:
-    """``NodeLoader``'s ``index_fn``: the positions of the current call's
-    round, drawn from the run's seed."""
-
-    def __init__(self, inputs: Inputs):
-        self.inputs = inputs
-        self.call = 0
-
-    def __call__(self, round_: int, steps: int) -> np.ndarray:
-        if steps != self.inputs.steps:
-            raise RuntimeError(f"the program takes {steps} local steps a round, the "
-                               f"algorithm {self.inputs.steps}")
-        return self.inputs.positions(self.call, round_)
-
-
-def build_trainer(cell: Cell, inputs: Inputs, feed: _Feed, devices: list[torch.device]):
-    """``DecentralizedTrainer`` as ``experiments.runner`` builds it for the
-    cell's spec, handed the benchmark's graph, data, split, first member and
-    batch draws."""
-    from repro_torch.core import mesh as mesh_mod
-    from repro_torch.core.topology import Graph
-    from repro_torch.data.loader import NodeLoader
-    from repro_torch.train.trainer import DecentralizedTrainer
-
-    cfg, tr = cell.config, cell.traffic
-    home = devices[0]
-    n = inputs.graph.n
-    loader = NodeLoader(inputs.ds.x_train, inputs.ds.y_train, inputs.parts,
-                        batch_size=inputs.batch, device=home, index_fn=feed)
-    graph = Graph(adj=inputs.graph.adj, blocks=inputs.graph.blocks, name=tr["topology"]["family"])
-    params = {"layers": [{k: v.expand(n, *v.shape) for k, v in lay.items()}
-                         for lay in inputs.member]}
-    backend = tr["backend"]
-    mesh = mesh_mod.Mesh(devices, ("data",)) if backend == "sparse_sharded" else None
-    trainer = DecentralizedTrainer(
-        graph, loader, lr=cfg["lr"], momentum=cfg["momentum"], mix_impl=backend,
-        matrix="decavg", sparse_p_chunk=tr.get("sparse_p_chunk"), seed=0,
-        in_dim=cfg["in_dim"], hidden=tuple(cfg["hidden"]), num_classes=cfg["num_classes"],
-        class_groups=inputs.groups, params=params, mesh=mesh, device=home,
-    )
-    if not trainer.supports_fused:
-        raise RuntimeError(f"backend {trainer.mix_impl!r} has no run_fused")
-    return trainer
-
-
 @dataclasses.dataclass
 class Context:
     """What a per-layer reader may read."""
 
     cell: Cell
-    inputs: Inputs
+    inputs: Any
     trainer: Any
     devices: list[torch.device]
     window: dict[str, float]  # seconds, rounds, calls, evals, gossip_rounds, median_call_s
     trace: trace.Summary | None
     wire: dict[str, int]  # bytes between shards over the window, by kind
     peaks: dict | None
+    param_count: int | None = None  # the program's parameters a node
     _memo: dict = dataclasses.field(default_factory=dict)
 
     def value(self, metric: str) -> float | None:
@@ -146,10 +97,6 @@ class Context:
     def sync(self) -> None:
         sync(self.devices)
 
-    @property
-    def param_count(self) -> int:
-        return counts.param_count(self.inputs.dims)
-
 
 def _reader(metric: str) -> Callable[[Context], float | None]:
     path = ROOT / "bench" / "metrics" / f"{metric}.py"
@@ -158,6 +105,21 @@ def _reader(metric: str) -> Callable[[Context], float | None]:
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.read
+
+
+def load_kind(cell: Cell, root: Path = ROOT):
+    """The module of the cell's configuration kind, ``bench/kinds/<kind>.py``
+    under ``root``."""
+    kind = cell.config["kind"]
+    path = root / "bench" / "kinds" / f"{kind}.py"
+    if not path.is_file():
+        raise SystemExit(f"{cell.name}: no module bench/kinds/{kind}.py for the kind of "
+                         f"configuration {kind!r}")
+    spec = importlib.util.spec_from_file_location("bench_kind_" + kind, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
 
 
 class _Laps:
@@ -189,95 +151,13 @@ def _peak_bytes(devices: list[torch.device]) -> int:
                 if d.type == "cuda"), default=0)
 
 
-def first_call(cell: Cell, inputs: Inputs, devices: list[torch.device]):
-    """Build the trainer and run call 0, whose rounds up to ``check_round``
-    the reference replays; returns the trainer, its feed, the call (a function of
-    ``on_round``) and the readings of the program's side."""
-    tr = cell.traffic
-    rounds, every = int(tr["rounds_per_call"]), int(tr["eval_every"])
-    feed = _Feed(inputs)
-    trainer = build_trainer(cell, inputs, feed, devices)
-    x_test, y_test = inputs.ds.x_test, inputs.ds.y_test
-
-    def call(on_round) -> None:
-        trainer.run_fused(rounds, eval_every=every, x_test=x_test, y_test=y_test,
-                          on_round=on_round)
-        sync(devices)
-
-    at, upto = check_round(cell), records_round(cell)
-    records: list = []
-    state: list[check.Side] = []
-
-    def on_round(m) -> None:
-        records.append(m)
-        if m.round == at and not sharded:
-            state.append(read_state())
-
-    def read_state() -> check.Side:
-        return check.program_side(trainer.params["layers"], trainer.momentum["layers"],
-                                  inputs.member, [m for m in records if m.round <= upto],
-                                  inputs.spread)
-
-    # A sharded run's state shows only once its call has gathered it.
-    sharded = trainer.mix_impl == "sparse_sharded"
-    if sharded and at != rounds - 1:
-        raise SystemExit(f"{cell.name}: a sharded run's state is read at its last round, "
-                         f"not round {at}")
-    call(on_round)
-    prog = read_state() if sharded else state[0]
-    sync(devices)
-    return trainer, feed, call, prog
-
-
-def check_round(cell: Cell) -> int:
-    """The round of call 0 whose state the reference compares (the
-    traffic's ``check_round``): an evaluated round."""
-    tr = cell.traffic
-    rounds, every = int(tr["rounds_per_call"]), int(tr["eval_every"])
-    at = int(tr["check_round"])
-    if at not in evaluated_rounds(rounds, every):
-        raise SystemExit(f"{cell.name}: check_round {at} is not an evaluated round")
-    return at
-
-
-def records_round(cell: Cell) -> int:
-    """The last round of call 0 whose evaluation records are compared, with
-    every earlier evaluated round's (the traffic's ``records_round``; by
-    default ``check_round``): an evaluated round, not after ``check_round``."""
-    tr = cell.traffic
-    at = check_round(cell)
-    upto = int(tr.get("records_round", at))
-    if upto > at or upto not in evaluated_rounds(int(tr["rounds_per_call"]),
-                                                 int(tr["eval_every"])):
-        raise SystemExit(f"{cell.name}: records_round {upto} is not an evaluated round "
-                         f"up to check_round {at}")
-    return upto
-
-
-def evaluated_rounds(rounds: int, every: int) -> list[int]:
-    """The rounds of a call that ``run_fused`` evaluates: every
-    ``every``-th and the last."""
-    return [r for r in range(rounds) if r % every == 0 or r == rounds - 1]
-
-
-def reference_side(cell: Cell, inputs: Inputs, device: torch.device,
-                   precision: str = "f32") -> check.Side:
-    """The reference's replay of call 0 up to its ``check_round`` and its
-    readings, with the records up to ``records_round``."""
-    tr = cell.traffic
-    rep = reference.replay(inputs, rounds=check_round(cell) + 1,
-                           eval_every=int(tr["eval_every"]), lr=cell.config["lr"],
-                           momentum=cell.config["momentum"], device=device, precision=precision)
-    upto = records_round(cell)
-    rep.evals[:] = [e for e in rep.evals if e["round"] <= upto]
-    return check.reference_side(rep, inputs.member, inputs.spread)
-
-
 def run(name: str, *, seed: int, seconds: float, traced: bool, t_start: float,
-        device: str = "cuda", overrides: dict | None = None) -> dict[str, Any]:
-    """One run of cell ``name``; returns the result line's object. With
-    ``device="cpu"`` (tests) the cell's shards all sit on the CPU."""
-    cell = load_cell(name, overrides=overrides)
+        device: str = "cuda", overrides: dict | None = None, root: Path = ROOT) -> dict[str, Any]:
+    """One run of cell ``name`` of ``root``'s manifest; returns the result
+    line's object. With ``device="cpu"`` (tests) the cell's shards all sit
+    on the CPU."""
+    cell = load_cell(name, root=root, overrides=overrides)
+    kind = load_kind(cell, root)
     if device == "cuda":
         if not torch.cuda.is_available() or torch.cuda.device_count() < cell.chips:
             raise SystemExit(f"{cell.name} needs {cell.chips} CUDA card(s); "
@@ -292,25 +172,17 @@ def run(name: str, *, seed: int, seconds: float, traced: bool, t_start: float,
     import repro_torch.device  # noqa: F401  (TF32 off, as the program states)
     from repro_torch.core import mesh as mesh_mod
 
-    tr = cell.traffic
-    rounds = int(tr["rounds_per_call"])
     laps = _Laps(t_start)
     laps.lap("imports and CUDA")
-    inputs = make_inputs(cell.config, tr, seed, devices[0])
-    laps.lap("inputs")
-    trainer, feed, call, prog = first_call(cell, inputs, devices)
-    laps.lap("trainer and call 0")
-    evals_per_call = len(evaluated_rounds(rounds, int(tr["eval_every"])))
+    program = kind.setup(cell, seed, devices, laps.lap)
     setup_s = time.perf_counter() - t_start
 
-    gossip_per_call = rounds  # gossip_every is 1: every round mixes
     mesh_mod.reset_wire_bytes()
     n_calls = 0
     ends: list[float] = []
     t0 = time.perf_counter()
     while True:
-        feed.call += 1
-        call(None)
+        program.call()
         n_calls += 1
         ends.append(time.perf_counter())
         if n_calls == 1:
@@ -326,21 +198,22 @@ def run(name: str, *, seed: int, seconds: float, traced: bool, t_start: float,
     peak = _peak_bytes(devices)
     events: list = []
     if traced:  # one more call, traced, once the window has closed
-        feed.call += 1
         with trace.traced(events):
-            call(None)
+            program.call()
         laps.lap("traced call")
 
-    window = {"seconds": window_s, "rounds": n_calls * rounds, "calls": n_calls,
-              "evals": n_calls * evals_per_call, "gossip_rounds": n_calls * gossip_per_call,
+    window = {"seconds": window_s, "rounds": n_calls * program.rounds_per_call,
+              "calls": n_calls, "evals": n_calls * program.evals_per_call,
+              "gossip_rounds": n_calls * program.gossip_per_call,
               "median_call_s": float(np.median(per_call))}
-    kind = torch.cuda.get_device_name(devices[0]) if devices[0].type == "cuda" else "cpu"
+    card = torch.cuda.get_device_name(devices[0]) if devices[0].type == "cuda" else "cpu"
     dev_info: dict[str, Any] = {"platform": "gpu" if devices[0].type == "cuda" else "cpu",
-                                "kind": kind, "count": cell.chips, "memory_peak_bytes": peak}
+                                "kind": card, "count": cell.chips, "memory_peak_bytes": peak}
     breakdown = None
     if traced:
         summ = trace.summarize(events[0])
-        ctx = Context(cell, inputs, trainer, devices, window, summ, wire, counts.peaks_for(kind))
+        ctx = Context(cell, program.inputs, program.trainer, devices, window, summ, wire,
+                      counts.peaks_for(card), program.param_count)
         metrics = {}
         for m, unit in cell.per_layer.items():
             v = ctx.value(m)
@@ -356,12 +229,12 @@ def run(name: str, *, seed: int, seconds: float, traced: bool, t_start: float,
         metrics = {m: {"value": taken[m], "unit": unit} for m, unit in cell.end_to_end.items()}
 
     # The program's state goes before the reference runs on the same cards.
-    del trainer
+    program.release()
     gc.collect()
     if devices[0].type == "cuda":
         torch.cuda.empty_cache()
     laps.lap("per-layer readings" if traced else "after the window")
-    numbers = check.gaps(prog, reference_side(cell, inputs, devices[0]))
+    numbers = program.compare(devices[0])
     laps.lap("reference")
     print("phases " + ", ".join(f"{k} {v:.3f} s" for k, v in laps.times), file=sys.stderr)
     print(f"calls {len(per_call)}: min {per_call.min():.4f} s, median {np.median(per_call):.4f} s, "
@@ -371,8 +244,8 @@ def run(name: str, *, seed: int, seconds: float, traced: bool, t_start: float,
     if traced:
         print(f"traced call {summ.window_s:.4f} s, busy {summ.mean_busy_s(cell.chips):.4f} s "
               f"(mean over the cards)", file=sys.stderr)
-    correct, checked = check.judge(numbers, check.load_limits(ROOT, cell.name))
-    for k in check.NUMBERS:
+    correct, checked = check.judge(numbers, check.load_limits(root, cell.name))
+    for k in kind.NUMBERS:
         if k not in checked:
             print(f"check {k} {numbers[k]:.6e} not compared (no limit)", file=sys.stderr)
     for k, v in checked.items():

@@ -2,7 +2,8 @@
 
     python3 bench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
-Loads, builds the trainer, warms up with one full call (set-up ends there),
+Loads, builds the program as the configuration's kind of run says
+(``bench/kinds/<kind>.py``), warms up with one full call (set-up ends there),
 measures for ``--seconds``, replays the set-up's call with the plain
 reference, and prints one JSON line as the last line of standard output:
 ``correct``, ``attempted``, ``failed``, ``metrics`` (the cell's end-to-end

@@ -9,6 +9,7 @@ import pytest
 
 from bench import counts
 from bench.inputs import draws, graphs, partition
+from bench.kinds import mlp
 from conftest import ROOT
 
 CASES = {
@@ -30,7 +31,7 @@ def test_parameters_nonzeros_and_steps(config):
     traffic, p, nnz, steps = CASES[config]
     cfg, tr = _load(config, traffic)
     dims = (cfg["in_dim"], *cfg["hidden"], cfg["num_classes"])
-    assert counts.param_count(dims) == p == cfg["params_per_node"]
+    assert mlp.param_count(dims) == p == cfg["params_per_node"]
     g = graphs.make(tr["topology"])
     assert g.n == cfg["nodes"] and g.nnz == nnz
     # The split's sizes do not depend on the images: labels in equal classes.

@@ -16,6 +16,7 @@ import torch
 
 from bench import check, faults, harness, trace
 from bench.inputs import make_inputs
+from bench.kinds import mlp
 from conftest import ROOT
 
 CELLS = [w["name"] for w in json.loads((ROOT / "BENCHMARK.json").read_text())["workloads"]]
@@ -49,12 +50,47 @@ def test_sound_run_is_correct(cell, capsys):
     out = run(cell)
     assert out["correct"] is True
     assert list(out)[-1] == "checked" and out["checked"]
-    assert set(out["checked"]) == set(check.load_limits(ROOT, cell)) <= set(check.NUMBERS)
+    assert set(out["checked"]) == set(check.load_limits(ROOT, cell)) <= set(mlp.NUMBERS)
     assert set(out["metrics"]) == set(harness.load_cell(cell).end_to_end)
     assert "setup_s" in out["metrics"] and len(out["metrics"]) >= 2
     assert out["device"]["count"] == harness.load_cell(cell).chips
     err = capsys.readouterr().err.strip().splitlines()
-    assert all(line.startswith("check ") for line in err[-len(check.NUMBERS):])
+    assert all(line.startswith("check ") for line in err[-len(mlp.NUMBERS):])
+
+
+# Each cell's five numbers at its tiny size on SEED, with four CPU threads,
+# as the harness gave them before the kinds of configuration had modules of
+# their own.
+NUMBERS_BEFORE = {
+    "paper-ba100-hub.curve": (6.063177444915564e-09, 1.691428756480513e-08, 0.0, 0.0,
+                              5.2341035358779254e-08),
+    "largen-ba4096-hub.1card": (1.3025846764887357e-08, 6.408490166061677e-09, 0.0, 0.0,
+                                9.009990067319832e-08),
+    "largen-ba4096-hub.4card": (1.3025846764887357e-08, 6.408490166061677e-09, 0.0, 0.0,
+                                9.009990067319832e-08),
+    "paper-ba100-hub.final": (7.099680941127776e-09, 4.0363017421494116e-09, 0.0, 0.0,
+                              5.2341035358779254e-08),
+}
+
+
+@pytest.fixture
+def four_threads():
+    """The thread count the recorded numbers were taken at: a float64
+    norm's sum splits by threads, and the gap of two norms keeps that."""
+    was = torch.get_num_threads()
+    torch.set_num_threads(4)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(was)
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_numbers_as_before(cell, four_threads):
+    got = run(cell)["numbers"]
+    assert list(got) == list(mlp.NUMBERS)
+    want = dict(zip(mlp.NUMBERS, NUMBERS_BEFORE[cell]))
+    assert got == pytest.approx(want, rel=1e-9, abs=0)
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -83,9 +119,9 @@ def test_control_is_not_correct(cell):
     c = harness.load_cell(cell, overrides=tiny(cell))
     cpu = torch.device("cpu")
     inputs = make_inputs(c.config, c.traffic, SEED, cpu)
-    ref = harness.reference_side(c, inputs, cpu)
-    ctl = harness.reference_side(c, inputs, cpu, precision="tf32")
-    correct, checked = check.judge(check.gaps(ctl, ref), check.load_limits(ROOT, cell))
+    ref = mlp.reference_side(c, inputs, cpu)
+    ctl = mlp.reference_side(c, inputs, cpu, precision="tf32")
+    correct, checked = check.judge(mlp.gaps(ctl, ref), check.load_limits(ROOT, cell))
     assert correct is False, checked
 
 
@@ -105,9 +141,9 @@ def test_perturbed_mix_moves_the_numbers(cell):
                                         ("largen-ba4096-hub.1card", 5)])
 def test_evaluations_a_call(cell, evals):
     tr = harness.load_cell(cell).traffic
-    got = harness.evaluated_rounds(tr["rounds_per_call"], tr["eval_every"])
+    got = mlp.evaluated_rounds(tr["rounds_per_call"], tr["eval_every"])
     assert len(got) == evals and tr["check_round"] in got
-    assert harness.records_round(harness.load_cell(cell)) in got
+    assert mlp.records_round(harness.load_cell(cell)) in got
 
 
 def test_no_card_no_result():

@@ -50,7 +50,7 @@ def test_importing_the_harness_loads_no_jax():
     code = (
         "import sys\n"
         f"sys.path[:0] = [{str(ROOT)!r}, {str(ROOT / 'src')!r}]\n"
-        "import bench.harness, bench.calibrate, bench.faults\n"
+        "import bench.harness, bench.calibrate, bench.faults, bench.kinds.mlp\n"
         "import repro_torch.train.trainer, repro_torch.core.decavg\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'repro', 'benchmarks'))\n"

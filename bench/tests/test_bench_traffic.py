@@ -8,6 +8,7 @@ import torch
 
 from bench import harness
 from bench.inputs import make_inputs
+from bench.kinds import mlp
 from conftest import ROOT
 
 
@@ -33,5 +34,5 @@ def test_new_traffic_file_is_found_by_name(tmp_path):
     cpu = torch.device("cpu")
     inputs = make_inputs(cell.config, cell.traffic, 5, cpu)
     assert inputs.graph.n == 24 and inputs.steps == max(1, int(480 / 24) // 4)
-    trainer, _, _, prog = harness.first_call(cell, inputs, [cpu])
-    assert trainer.mix_impl == "sparse" and [e["round"] for e in prog.evals] == [0, 1]
+    run = mlp.Run(cell, inputs, [cpu])
+    assert run.trainer.mix_impl == "sparse" and [e["round"] for e in run.prog.evals] == [0, 1]

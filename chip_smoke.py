@@ -223,6 +223,11 @@ carries on:
                counts, prefill ms, decode tokens/s and peak memory printed,
                and torch.profiler over one prefill and one decode step (an
                admitting and a decoding Engine step);
+19s. scan    -- the selective scan kernel against its plain version at
+               Jamba2-3B's mixer shape (1, 4096, 5120, 16), forward and
+               backward, its device-alone time against the bound of its
+               bytes, and its launches on the reduced Jamba2-3B cohort's
+               run_fused (the kernels line's selective_scan entry);
 20. zoo_lm   -- python -m repro_torch.launch.train --arch A for every zoo arch
                (reduced members, 4 on a ring, 3 steps, batch 2 x 64 tokens,
                CHOCO auto) on sparse_pallas (fused) and, for jamba and dbrx,
@@ -659,6 +664,9 @@ def main() -> int:
                          "the cards)")
     ap.add_argument("--ell-sum", action="store_true",
                     help="run only phases 1, 2 and 9a (the ELL slot sum kernel)")
+    ap.add_argument("--selective-scan", action="store_true",
+                    help="run only phases 1, 2 and 19s (the selective scan kernel), then "
+                         "jamba-v0.1's phase-19 checks, whose prefill runs through it")
     ap.add_argument("--pipeline-train", action="store_true",
                     help="run only phase 21's build_train_step (the full run starts it as a "
                          "child process)")
@@ -685,6 +693,7 @@ def main() -> int:
     from repro_torch.kernels import ell_sum as es
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gossip_mix as gm
+    from repro_torch.kernels import selective_scan as ss
     from repro_torch.kernels import sparse_gossip as sg
     from repro_torch.kernels.nvcc import ptxas_report
     from repro_torch.train.trainer import DecentralizedTrainer
@@ -700,12 +709,13 @@ def main() -> int:
 
     # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=4) as pool:
-        libs = [f.result() for f in [pool.submit(m.build) for m in (gm, sg, fa, es)]]
+    with ThreadPoolExecutor(max_workers=5) as pool:
+        libs = [f.result() for f in [pool.submit(m.build) for m in (gm, sg, fa, es, ss)]]
     gm._library()
     sg.load()
     fa._library()
     es.load()
+    ss.load()
     phase("build", f"{', '.join(lib.name for lib in libs)} built and loaded in "
                    f"{time.perf_counter() - t0:.2f} s")
     for lib in libs:
@@ -733,6 +743,12 @@ def main() -> int:
     if args.ell_sum:
         ell_sum_checks(dev, smi)
         laps.lap("9a ell_sum")
+        return 0
+    if args.selective_scan:
+        selective_scan_checks(dev, smi)
+        laps.lap("19s selective_scan")
+        zoo_main_path(dev, smi, runs=[r for r in ZOO_RUNS if r[0].startswith("jamba")])
+        laps.lap("19 zoo (jamba)")
         return 0
 
     # 3. kernel against plain, on the card
@@ -939,6 +955,8 @@ def main() -> int:
     # 19-20. slice G: the rest of the model zoo, served and trained
     zoo_flash = zoo_main_path(dev, smi)
     laps.lap("19 zoo")
+    scan_times, scan_err, scan_launches = selective_scan_checks(dev, smi)
+    laps.lap("19s selective_scan")
     zoo_lm_launches, zoo_lm_err = zoo_lm_main_path(dev, smi)
     laps.lap("20 zoo_lm")
     # 21. slice G2: the step builders and the pipeline-parallel decoders
@@ -956,7 +974,8 @@ def main() -> int:
     examples_on_card(smi)
     laps.lap("23 paper, examples")
     path_launches = {**large_n_launches, "gossip_mix": launches["gossip_mix"],
-                     "flash_attention": flash_launches + zoo_flash}
+                     "flash_attention": flash_launches + zoo_flash,
+                     "selective_scan": scan_launches}
     for part in (choco_launches, lm_launches, full_launches, zoo_lm_launches):
         for name, n in part.items():
             path_launches[name] += n
@@ -986,6 +1005,8 @@ def main() -> int:
         entry("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention.py:101", flash_times, flash_err),
         entry("ell_sum", "src/repro_torch/kernels/csrc/ell_sum.cu", None, ell_times, 0.0),
+        entry("selective_scan", "src/repro_torch/kernels/csrc/selective_scan.cu", None,
+              scan_times, scan_err),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -2894,7 +2915,7 @@ def free_card() -> None:
     torch.cuda.empty_cache()
 
 
-def zoo_reduced_checks(dev) -> None:
+def zoo_reduced_checks(dev, runs=ZOO_RUNS) -> None:
     """Phase 19, first part: each zoo arch's reduced config in f32 on the
     card. Chunked prefill against token-by-token prefill at 2e-5, then 4
     decode steps alike (MoE patterns excepted: a prompt routes as one group,
@@ -2910,7 +2931,7 @@ def zoo_reduced_checks(dev) -> None:
     from repro_torch.serve.engine import Engine, engine_ok
 
     rng = np.random.default_rng(0)
-    for arch, _, _ in ZOO_RUNS:
+    for arch, _, _ in runs:
         cfg = cfgbase.get(arch).reduced()
         checked = cfg
         if arch.startswith("jamba"):
@@ -3108,14 +3129,14 @@ def zoo_engine(params, cfg, dev, smi: str) -> int:
     return launches
 
 
-def zoo_main_path(dev, smi: str) -> int:
+def zoo_main_path(dev, smi: str, runs=ZOO_RUNS) -> int:
     """Phase 19; returns the flash kernel's launches in the warm Engine runs."""
     from repro_torch.configs import base as cfgbase
     from repro_torch.models import transformer as TF
 
-    zoo_reduced_checks(dev)
+    zoo_reduced_checks(dev, runs)
     flash_launches = 0
-    for arch, layers, route in ZOO_RUNS:
+    for arch, layers, route in runs:
         full = cfgbase.get(arch)
         cfg = dataclasses.replace(full, num_layers=layers)
         free_card()
@@ -4094,5 +4115,105 @@ def route_cli(smi: str) -> None:
                    f"{summary['g2_token_spread']:.6f}; exit {res.returncode}; {smi}")
 
 
+
+# -- 19s. the selective scan kernel ---------------------------------------------
+
+SCAN_SHAPE = (1, 4096, 5120, 16)  # Jamba2-3B's mixer at the benchmark cell's length
+
+
+def scan_bytes_ops(b: int, s: int, di: int, n: int) -> tuple[int, int]:
+    """The selective scan's forward and backward work, whatever implements
+    it: its inputs read once and its outputs written once in f32 (forward:
+    u, dt, B, C in, y out; backward, recomputing the states: dy, u, dt, B, C
+    in, du, d dt, dB, dC out) and its f32 operations a (t, channel, state):
+    7 forward, 26 backward (``bench/kinds/lm.py``'s ``scan_counts``)."""
+    bsd, bsn = b * s * di, b * s * n
+    return 4 * (3 * bsd + 2 * bsn) + 4 * (5 * bsd + 4 * bsn), (7 + 26) * bsd * n
+
+
+def selective_scan_checks(dev, smi: str) -> tuple[dict, float, int]:
+    """Phase 19s: the selective scan kernel against its plain version at
+    Jamba2-3B's mixer shape, forward and backward (y, the last state and
+    each input's gradient, the largest gap as a share of the tensor's
+    largest entry); its forward and backward time on the device alone
+    (CUDA-graph replay) against the bound of the work itself
+    (``scan_bytes_ops``: bytes at 3.35 TB/s or operations at the f32 rate)
+    and the plain version's time; then the main path's launches: the
+    reduced Jamba2-3B cohort's ``LMCohortTrainer.run_fused`` (3 members on a
+    star, 3 rounds, nothing recorded), counts reset just before it. Returns
+    the kernels line's times, the largest gap and those launches."""
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels import selective_scan as ss
+    from repro_torch.models import mamba as Mb
+    from repro_torch.train.trainer import LMCohortTrainer
+
+    b, s, di, n = SCAN_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(0)
+    a = -torch.arange(1, n + 1, dtype=torch.float32, device=dev).expand(di, n).contiguous()
+    ins = [torch.randn(b, s, di, generator=gen, device=dev),
+           0.5 * torch.randn(b, s, di, generator=gen, device=dev),
+           torch.full((di,), -4.0, device=dev), a,
+           torch.randn(b, s, n, generator=gen, device=dev),
+           torch.randn(b, s, n, generator=gen, device=dev), torch.ones(di, device=dev)]
+    gy = torch.randn(b, s, di, generator=gen, device=dev)
+    plain = lambda *x: Mb.selective_scan_ref(*x, chunk=256)  # noqa: E731
+
+    def grads(fn):
+        leaves = [x.clone().requires_grad_(True) for x in ins]
+        y, h = fn(*leaves)
+        torch.autograd.backward([y, h], [gy, torch.zeros_like(h)])
+        return [y.detach(), h.detach()] + [x.grad for x in leaves]
+
+    reset_launches()
+    got = grads(ss.selective_scan)
+    torch.cuda.synchronize()
+    launches = (LAUNCHES["selective_scan"], LAUNCHES["selective_scan_bwd"])
+    want = grads(plain)
+    names = ("y", "h_last", "du", "d dt", "d dt_bias", "dA", "dB", "dC", "dD")
+    gaps = {k: float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+            for k, g, w in zip(names, got, want)}
+    phase("scan", f"kernel vs plain at (B, S, d_inner, d_state) = {SCAN_SHAPE}: "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
+                  + f" (tol 2e-5 / 1e-4); launches fwd {launches[0]}, bwd {launches[1]}")
+    if max(gaps["y"], gaps["h_last"]) > 2e-5 or max(gaps.values()) > 1e-4 or launches != (1, 1):
+        fail(f"selective scan against its plain version: {gaps}, launches {launches}")
+    del want, got
+    free_card()
+    t_plain = time_ms(lambda: grads(plain), reps=2, warmup=1)
+    free_card()
+    leaves = [x.clone().requires_grad_(True) for x in ins]
+    fwd_ms = device_ms(lambda: ss.selective_scan(*leaves))
+    both_ms = device_ms(lambda: torch.autograd.grad(ss.selective_scan(*leaves)[0], leaves, gy))
+    nbytes, ops = scan_bytes_ops(b, s, di, n)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOP_PER_S * 1e3
+    bound = max(t_bytes, t_ops)
+    phase("scan", f"on the device alone: forward {fwd_ms:.4f} ms, forward and backward "
+                  f"{both_ms:.4f} ms against a bound of {bound:.4f} ms ({nbytes} bytes, {ops} "
+                  f"operations: {100 * bound / both_ms:.2f}%); plain version {t_plain:.4f} ms "
+                  f"(host clock); {smi}")
+    del leaves
+    free_card()
+
+    cfg = cfgbase.get("jamba2-3b").reduced()
+    trainer = LMCohortTrainer("star:n=3", cfg, nodes=3, batch=1, seq=64, lr=0.1,
+                              backend="sparse", compress=None, seed=5, device=dev)
+    reset_launches()
+    trainer.run_fused(3, eval_every=None)
+    torch.cuda.synchronize()
+    mamba = sum(sp.mixer == "mamba" for sp in cfg.pattern) * cfg.num_groups
+    main = (LAUNCHES["selective_scan"], LAUNCHES["selective_scan_bwd"])
+    phase("scan", f"main path (reduced Jamba2-3B cohort, 3 rounds, run_fused): launches fwd "
+                  f"{main[0]}, bwd {main[1]} (want {3 * 3 * 2 * mamba}, {3 * 3 * mamba})")
+    if main != (3 * 3 * 2 * mamba, 3 * 3 * mamba):
+        fail(f"selective scan launches on the main path: {main}")
+    del trainer
+    free_card()
+    times = {"ms": both_ms, "plain_ms": t_plain, "bound_ms": bound,
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None}
+    return times, max(gaps.values()), sum(main)
+
+
 if __name__ == "__main__":
     sys.exit(main())
+

@@ -22,7 +22,7 @@ from repro_torch.models.mamba import MambaSpec
 from repro_torch.models.moe import MoESpec
 from repro_torch.models.rwkv import RWKVSpec
 
-__all__ = ["ArchConfig", "LayerSpec", "ASSIGNED_ARCHS", "get", "all_arch_ids"]
+__all__ = ["ArchConfig", "LayerSpec", "ASSIGNED_ARCHS", "EXTRA_ARCHS", "get", "all_arch_ids"]
 
 Mixer = Literal["attn", "mamba", "rwkv"]
 Ffn = Literal["dense", "moe", "rwkv", "none"]
@@ -81,6 +81,14 @@ class ArchConfig:
     smoke_batch: int = 2
     smoke_seq: int = 32
 
+    # The port's own fields (the reference has none of them), each off by
+    # default, so every config above builds the reference's tree and bits:
+    # RoPE in self-attention (Jamba uses no positional encoding), logits as
+    # ``x @ embed.T`` with no ``lm_head`` leaf, and the eps of every RMSNorm.
+    use_rope: bool = True
+    tie_embeddings: bool = False
+    norm_eps: float = 1e-5
+
     @property
     def hd(self) -> int:
         return self.head_dim or (self.d_model // max(self.num_heads, 1))
@@ -107,6 +115,8 @@ class ArchConfig:
         hd = 32
         heads = max(2, min(self.num_heads, d_model // hd))
         kv = heads if self.num_kv_heads == self.num_heads else max(1, heads // 2)
+        if self.num_kv_heads == 1:
+            kv = 1  # multi-query attention stays multi-query
         moe = None
         if self.moe is not None:
             moe = dataclasses.replace(
@@ -121,7 +131,7 @@ class ArchConfig:
             rwkv = dataclasses.replace(self.rwkv, head_dim=hd, decay_lora=16, chunk=8)
         mamba = None
         if self.mamba is not None:
-            mamba = dataclasses.replace(self.mamba, d_state=8, chunk=8)
+            mamba = dataclasses.replace(self.mamba, d_state=8, chunk=8, dt_rank=0)
         return dataclasses.replace(
             self,
             arch_id=self.arch_id + "-reduced",
@@ -168,14 +178,19 @@ _ALIASES = {name.replace("_", "-"): name for name in ASSIGNED_ARCHS} | {
     "whisper-base": "whisper_base",
     "internvl2-76b": "internvl2_76b",
     "paper-mlp": "paper_mlp",
+    "jamba2-3b": "jamba2_3b",
 }
+
+# Configurations of the port beyond the reference's zoo (``all_arch_ids``
+# stays the reference's list): each resolves through ``get``.
+EXTRA_ARCHS = ("jamba2_3b",)
 
 
 def get(arch_id: str) -> Any:
     """The config of ``arch_id`` (module name or alias; ``paper-mlp`` gives
     the paper MLP's own dataclass, as in the reference)."""
     mod_name = _ALIASES.get(arch_id, arch_id.replace("-", "_").replace(".", ""))
-    if mod_name not in ASSIGNED_ARCHS + ("paper_mlp",):
+    if mod_name not in ASSIGNED_ARCHS + EXTRA_ARCHS + ("paper_mlp",):
         raise ValueError(f"unknown arch id {arch_id!r}; known: {ASSIGNED_ARCHS}")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.CONFIG

@@ -18,7 +18,7 @@ import torch
 
 LAUNCHES: dict[str, int] = {
     "gossip_mix": 0, "sparse_gossip": 0, "sparse_gossip_blocked": 0, "flash_attention": 0,
-    "ell_sum": 0,
+    "ell_sum": 0, "selective_scan": 0, "selective_scan_bwd": 0,
 }
 CAPTURED: dict[str, int] = dict.fromkeys(LAUNCHES, 0)
 

@@ -67,10 +67,10 @@ def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float = 1
     return (out * w.float() + b.float()).to(x.dtype)
 
 
-def norm(x: torch.Tensor, p: PyTree, kind: str = "rms") -> torch.Tensor:
+def norm(x: torch.Tensor, p: PyTree, kind: str = "rms", eps: float = 1e-5) -> torch.Tensor:
     if kind == "rms":
-        return rms_norm(x, p["w"])
-    return layer_norm(x, p["w"], p["b"])
+        return rms_norm(x, p["w"], eps)
+    return layer_norm(x, p["w"], p["b"], eps)
 
 
 # ---------------------------------------------------------------------------

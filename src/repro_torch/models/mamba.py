@@ -8,6 +8,13 @@ d_state). PyTorch has no associative scan: the in-chunk scan here is
 ``jax.lax.associative_scan``'s odd/even recursion written in plain tensor
 ops (``_prefix_scan``).
 
+The scan itself (discretisation, recurrence, read-out and the D skip) is
+``kernels.ops.selective_scan``: on CPU tensors the plain version, which is
+the chunked scan above, and on the card the hand-written CUDA selective scan,
+which never holds a (B, S, d_inner, d_state) tensor. ``MambaSpec.inner_norms``
+adds Jamba's RMSNorms on dt, B and C (arXiv:2403.19887, section 6.4) before
+``dt_proj`` and the scan; off by default, as in the reference.
+
 Decode (S == 1 with a cache) is the exact single step. A given cache
 (``{"conv", "ssm"}``) is updated in place and returned, as the port's
 attention caches are.
@@ -25,9 +32,10 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import _full, _normal
+from repro_torch.kernels import ops as _ops
+from repro_torch.models.layers import _full, _normal, rms_norm
 
-__all__ = ["MambaSpec", "init_mamba", "init_mamba_cache", "mamba_block"]
+__all__ = ["MambaSpec", "init_mamba", "init_mamba_cache", "mamba_block", "selective_scan_ref"]
 
 PyTree = Any
 
@@ -39,6 +47,7 @@ class MambaSpec:
     expand: int = 2
     dt_rank: int = 0  # 0 -> ceil(d_model / 16)
     chunk: int = 256
+    inner_norms: bool = False  # RMSNorms on dt, B and C (Jamba), a port-only field
 
     def inner(self, d_model: int) -> int:
         return self.expand * d_model
@@ -53,6 +62,11 @@ def init_mamba(gen: torch.Generator | None, d_model: int, spec: MambaSpec, dtype
     di, dr, n = spec.inner(d_model), spec.rank(d_model), spec.d_state
     dev = torch.device("meta") if gen is None else gen.device
     a_log = torch.log(torch.arange(1, n + 1, dtype=torch.float32, device=dev))
+    norms = {}
+    if spec.inner_norms:
+        norms = {"dt_norm": _full(gen, lead + (dr,), 1.0, dtype),
+                 "b_norm": _full(gen, lead + (n,), 1.0, dtype),
+                 "c_norm": _full(gen, lead + (n,), 1.0, dtype)}
     return {
         "in_proj": _normal(gen, lead + (d_model, 2 * di), d_model**-0.5, dtype),
         "conv_w": _normal(gen, lead + (spec.d_conv, di), 0.2, dtype),
@@ -63,6 +77,7 @@ def init_mamba(gen: torch.Generator | None, d_model: int, spec: MambaSpec, dtype
         "a_log": a_log.expand(lead + (di, n)).contiguous(),
         "d_skip": _full(gen, lead + (di,), 1.0, torch.float32),
         "out_proj": _normal(gen, lead + (di, d_model), di**-0.5, dtype),
+        **norms,
     }
 
 
@@ -127,9 +142,11 @@ def _ssm_chunked(a: torch.Tensor, bx: torch.Tensor, c: torch.Tensor, h0: torch.T
 
 
 def mamba_block(p: PyTree, x: torch.Tensor, spec: MambaSpec, *,
-                cache: PyTree | None = None) -> tuple[torch.Tensor, PyTree | None]:
+                cache: PyTree | None = None, eps: float = 1e-5,
+                layer: int | None = None) -> tuple[torch.Tensor, PyTree | None]:
     """x: (B, S, d_model) -> (y, cache). cache = {"conv": (B, K-1, di),
-    "ssm": (B, di, n)}, updated in place."""
+    "ssm": (B, di, n)}, updated in place. ``eps`` is the inner norms'
+    (``spec.inner_norms``); ``layer`` labels the scan's spans."""
     b, s, d = x.shape
     n = spec.d_state
 
@@ -142,27 +159,50 @@ def mamba_block(p: PyTree, x: torch.Tensor, spec: MambaSpec, *,
     proj = (xs @ p["x_proj"]).float()  # (B, S, dr + 2n)
     dr = spec.rank(d)
     dt, bmat, cmat = proj.split([dr, n, n], dim=-1)
-    dt = F.softplus(dt @ p["dt_proj"].float() + p["dt_bias"])  # (B, S, di)
+    if spec.inner_norms:
+        dt = rms_norm(dt, p["dt_norm"], eps)
+        bmat = rms_norm(bmat, p["b_norm"], eps)
+        cmat = rms_norm(cmat, p["c_norm"], eps)
+    dt = dt @ p["dt_proj"].float()  # (B, S, di), before the bias and softplus
     a = -torch.exp(p["a_log"])  # (di, n)
-    a_bar = torch.exp(dt[..., None] * a[None, None])  # (B, S, di, n)
-    bx = (dt[..., None] * bmat[:, :, None, :]) * xs.float()[..., None]
 
-    if cache is not None:
-        h0 = cache["ssm"].float()
-    else:
-        h0 = torch.zeros((b, spec.inner(d), n), dtype=torch.float32, device=x.device)
+    h0 = cache["ssm"].float() if cache is not None else None
     if s == 1 and cache is not None:
+        dt = F.softplus(dt + p["dt_bias"])
+        a_bar = torch.exp(dt[..., None] * a[None, None])  # (B, 1, di, n)
+        bx = (dt[..., None] * bmat[:, :, None, :]) * xs.float()[..., None]
         h_last = a_bar[:, 0] * h0 + bx[:, 0]
         y = torch.einsum("bdn,bn->bd", h_last, cmat[:, 0])[:, None]
+        y = y + p["d_skip"][None, None] * xs.float()
     else:
-        y, h_last = _ssm_chunked(a_bar, bx, cmat, h0, spec.chunk)
+        y, h_last = _ops.selective_scan(xs, dt, p["dt_bias"], a, bmat, cmat,
+                                        p["d_skip"], h0, chunk=spec.chunk, layer=layer)
 
-    y = y + p["d_skip"][None, None] * xs.float()
     y = (y.to(x.dtype) * F.silu(z)) @ p["out_proj"]
     if cache is not None:
         cache["conv"].copy_(new_conv)
         cache["ssm"].copy_(h_last)
     return y.to(x.dtype), cache
+
+
+def selective_scan_ref(u: torch.Tensor, dt: torch.Tensor, dt_bias: torch.Tensor,
+                       a: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
+                       d_skip: torch.Tensor, h0: torch.Tensor | None = None, *,
+                       chunk: int = 256) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the selective scan, as the reference computes it:
+    dt = softplus(dt + dt_bias), a_bar = exp(dt a), b x = dt B u, the chunked
+    recurrence (``_ssm_chunked``), y = C h + D u. u, dt: (B, S, di); a:
+    (di, n); bmat, cmat: (B, S, n); h0: (B, di, n) or None (zeros). u may
+    be in the param dtype: it is taken to f32 where each term reads it, as
+    the reference does. Returns (y (B, S, di), h_last (B, di, n)), f32."""
+    dt = F.softplus(dt + dt_bias)
+    a_bar = torch.exp(dt[..., None] * a[None, None])  # (B, S, di, n)
+    bx = (dt[..., None] * bmat[:, :, None, :]) * u.float()[..., None]
+    if h0 is None:
+        h0 = torch.zeros((u.shape[0], u.shape[2], a.shape[1]), dtype=torch.float32,
+                         device=u.device)
+    y, h_last = _ssm_chunked(a_bar, bx, cmat, h0, chunk)
+    return y + d_skip[None, None] * u.float(), h_last
 
 
 def init_mamba_cache(batch: int, d_model: int, spec: MambaSpec, dtype, device,

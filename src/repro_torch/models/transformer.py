@@ -10,6 +10,11 @@ Public API (plain functions over parameter dicts of tensors):
   prefill_forward(params, cfg, tokens, cache)    -> (last logits, cache)
   decode_step(params, cfg, token, cache)         -> (logits, cache)
 
+A config's port-only fields (``use_rope``, ``tie_embeddings``,
+``norm_eps``; ``MambaSpec.inner_norms``) are off by default, and every config
+of the reference's zoo keeps them so: its tree and bits are the reference's.
+Tied embeddings drop the ``lm_head`` leaf: logits are ``x @ embed.T``.
+
 The layout is the reference's: ``params["blocks"]`` holds one subtree per
 layer of the pattern, each leaf with a leading group axis G
 (``cfg.num_groups``), so a JAX parameter tree carries over as it is. A
@@ -56,8 +61,15 @@ def _attn_spec(cfg: ArchConfig, *, window: int | None, flash: bool = False) -> L
         rope_theta=cfg.rope_theta,
         causal=True,
         window=window,
+        use_rope=cfg.use_rope,
         flash=flash,
     )
+
+
+def _head(params: PyTree, cfg: ArchConfig) -> torch.Tensor:
+    """The (d, V) output projection: ``lm_head``, or the embedding's
+    transpose when the config ties them."""
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
 # ---------------------------------------------------------------------------
@@ -136,8 +148,9 @@ def init_params(generator: torch.Generator | int, cfg: ArchConfig, device=None) 
         "blocks": {f"layer{i}": _init_layer(gen, cfg, spec, dtype)
                    for i, spec in enumerate(cfg.pattern)},
         "final_norm": _init_norm(cfg, dtype, dev),
-        "lm_head": L._normal(gen, (cfg.d_model, cfg.vocab_size), scale, dtype),
     }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L._normal(gen, (cfg.d_model, cfg.vocab_size), scale, dtype)
     if cfg.enc_dec:
         params.update(_init_encoder_and_cross(gen, cfg, dtype, dev))
     return params
@@ -173,16 +186,19 @@ def _apply_layer(
     memory: torch.Tensor | None,
     positions: torch.Tensor | None,
     flash: bool = False,
+    layer: int | None = None,
 ) -> tuple[torch.Tensor, PyTree | None, torch.Tensor]:
-    """Pre-norm residual layer. Returns (x, new_cache, moe_aux)."""
+    """Pre-norm residual layer (``layer``: its index in the stack, a span
+    label). Returns (x, new_cache, moe_aux)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    h = L.norm(x, p["norm1"], cfg.norm)
+    eps = cfg.norm_eps
+    h = L.norm(x, p["norm1"], cfg.norm, eps)
     mixer_cache = None if cache is None else cache["mixer"]
     if spec.mixer == "attn":
         aspec = _attn_spec(cfg, window=window, flash=flash)
         y, c = L.attention_layer(p["attn"], h, aspec, positions=positions, cache=mixer_cache)
     elif spec.mixer == "mamba":
-        y, c = Mb.mamba_block(p["mamba"], h, cfg.mamba, cache=mixer_cache)
+        y, c = Mb.mamba_block(p["mamba"], h, cfg.mamba, cache=mixer_cache, eps=eps, layer=layer)
     else:  # rwkv
         y, c = Rk.rwkv_block(p["rwkv"], h, cfg.rwkv, cache=mixer_cache)
     new_cache: PyTree = {"mixer": c, "ffn": None}
@@ -191,7 +207,7 @@ def _apply_layer(
     if cross is not None and memory is not None:
         # Cross-attention over the encoder memory: its K/V projected on
         # every call, no rope, nothing cached.
-        h = L.norm(x, cross["norm"], cfg.norm)
+        h = L.norm(x, cross["norm"], cfg.norm, eps)
         hkv, hd = cfg.num_kv_heads, cfg.hd
         b, t, _ = memory.shape
         mk = (memory @ cross["attn"]["wk"]).reshape(b, t, hkv, hd)
@@ -200,7 +216,7 @@ def _apply_layer(
                                  cross_kv=(mk, mv))
         x = x + y
 
-    h = L.norm(x, p["norm2"], cfg.norm)
+    h = L.norm(x, p["norm2"], cfg.norm, eps)
     if spec.ffn == "dense":
         y = L.swiglu_ffn(p["ffn"], h) if cfg.ffn_act == "swiglu" else L.gelu_ffn(p["ffn"], h)
     elif spec.ffn == "moe":
@@ -224,6 +240,7 @@ def _apply_group(
     memory: torch.Tensor | None,
     positions: torch.Tensor | None,
     flash: bool = False,
+    group: int = 0,
 ) -> tuple[torch.Tensor, PyTree | None, torch.Tensor]:
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache: PyTree = {}
@@ -237,6 +254,7 @@ def _apply_group(
             memory=memory,
             positions=positions,
             flash=flash,
+            layer=group * cfg.period + i,
         )
         new_cache[name] = c
         aux_total = aux_total + aux
@@ -260,7 +278,7 @@ def _groups(params: PyTree, cfg: ArchConfig, x: torch.Tensor, *, window, cache, 
             y, _, a = _apply_group(
                 _at(params["blocks"], g), x, cfg, window=window, cache=_at(cache, g),
                 cross=_at(params.get("cross"), g), memory=memory, positions=positions,
-                flash=flash,
+                flash=flash, group=g,
             )
             return y, a
 
@@ -309,10 +327,11 @@ def forward(
     positions = torch.arange(x.shape[1], device=x.device)
     x, aux = _groups(params, cfg, x, window=_window(cfg, window), cache=None,
                      memory=memory, positions=positions, remat=remat)
-    x = L.norm(x, params["final_norm"], cfg.norm)
+    x = L.norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
+    head = _head(params, cfg)
     if last_only:
-        return x[:, -1] @ params["lm_head"], aux
-    return x @ params["lm_head"], aux
+        return x[:, -1] @ head, aux
+    return x @ head, aux
 
 
 def encode(params: PyTree, cfg: ArchConfig, frames: torch.Tensor) -> torch.Tensor:
@@ -457,7 +476,7 @@ def prefill_forward(
     x = params["embed"][tokens]
     x, _ = _groups(params, cfg, x, window=_window(cfg, window), cache=cache,
                    memory=memory, positions=None, flash=flash)
-    x = L.norm(x, params["final_norm"], cfg.norm)
+    x = L.norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
     if length is None:
         last = x[:, -1]
     else:
@@ -467,7 +486,7 @@ def prefill_forward(
             index.copy_(torch.broadcast_to(length, index.shape))
     # Slice before the head matmul: full-sequence logits are a large
     # transient for nothing.
-    logits = (last @ params["lm_head"]).float()
+    logits = (last @ _head(params, cfg)).float()
     return logits, cache
 
 
@@ -486,6 +505,6 @@ def decode_step(
     x = params["embed"][token][:, None, :]  # (B, 1, d)
     x, _ = _groups(params, cfg, x, window=_window(cfg, window), cache=cache,
                    memory=memory, positions=None)
-    x = L.norm(x, params["final_norm"], cfg.norm)
-    logits = (x[:, 0] @ params["lm_head"]).float()
+    x = L.norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
+    logits = (x[:, 0] @ _head(params, cfg)).float()
     return logits, cache

@@ -996,6 +996,8 @@ class LMCohortTrainer:
         self._loss_fn = ST.node_loss_fn(cfg)
         self._sched = None  # built per run (total_steps = that run's rounds)
         self._eval_data = None
+        # (N,) the last round's per-node losses, on the trainer's device.
+        self.node_losses: torch.Tensor | None = None
 
     @property
     def graph(self):
@@ -1368,6 +1370,14 @@ class LMCohortTrainer:
         self._emit(rec, on_round, verbose, "(resume already complete)")
         return [rec]
 
+    @staticmethod
+    def _evals(rounds: int, eval_every: int | None) -> set[int]:
+        """The rounds both run paths record (evaluate and stream): ``run``'s
+        cadence, or none for ``eval_every=None``."""
+        if eval_every is None:
+            return set()
+        return set(DecentralizedTrainer._eval_rounds(rounds, eval_every))
+
     def _begin(self, rounds: int) -> bool:
         """Per-run set-up; True when a restored run has nothing left."""
         self._sched = schedules.get(self.schedule_name, self.lr, rounds)
@@ -1379,7 +1389,7 @@ class LMCohortTrainer:
         self,
         rounds: int,
         *,
-        eval_every: int = 1,
+        eval_every: int | None = 1,
         on_round: Callable[[dict], None] | None = None,
         ckpt_every: int = 0,
         ckpt_path: str = "",
@@ -1387,13 +1397,15 @@ class LMCohortTrainer:
     ) -> list[dict]:
         """Per-round Python loop: the local step and the engine's mix,
         eagerly; sharded, each shard's step on its device and the mix of
-        its slabs."""
+        its slabs. Every ``eval_every`` rounds and at the last, the round's
+        record (the cohort's domain evaluation) goes to ``on_round`` and
+        the returned history; ``eval_every=None`` records nothing."""
         _check_mesh(self.engine, self.device)
         self._follow_mesh()
         t0 = time.perf_counter()
         if self._begin(rounds):
             return self._finished_resume(rounds, on_round, verbose, t0)
-        evals = set(DecentralizedTrainer._eval_rounds(rounds, eval_every))
+        evals = self._evals(rounds, eval_every)
         cpts = self._ckpt_rounds(rounds, ckpt_every)
         if self.faulted:
             self.engine.fault_trace.ensure(rounds)
@@ -1408,6 +1420,7 @@ class LMCohortTrainer:
                 if self.engine.is_gossip_round(r):
                     self.engine.refresh(r)
                     self._gossip(self._mix_leaf)
+            self.node_losses = mesh_mod.gather(losses, self.device)
             if r in evals:
                 rec = self._round_record(r, self._mean(losses), lr, t0)
                 history.append(rec)
@@ -1420,7 +1433,7 @@ class LMCohortTrainer:
         self,
         rounds: int,
         *,
-        eval_every: int = 1,
+        eval_every: int | None = 1,
         on_round: Callable[[dict], None] | None = None,
         ckpt_every: int = 0,
         ckpt_path: str = "",
@@ -1429,11 +1442,15 @@ class LMCohortTrainer:
         """``run`` from a staged program; on the card, captured CUDA graphs.
 
         Rounds go in chunks that end at the eval and checkpoint rounds (so
-        checkpoints land on exact round boundaries). A chunk's token slab is
-        drawn on the host for just its rounds and copied to the device; each
-        round refills the static batch and round buffers and replays the
-        local-step graph and, on gossip rounds, its period slot's gossip
-        graph. Supported for the dense, sparse and sparse_pallas backends.
+        checkpoints land on exact round boundaries); with nothing to record
+        (``eval_every=None``) and no checkpoint, the run is one chunk. A
+        chunk's token slab is drawn on the host for just its rounds and
+        copied to the device; each round refills the static batch and round
+        buffers and replays the local-step graph and, on gossip rounds, its
+        period slot's gossip graph. Supported for the dense, sparse and sparse_pallas backends.
+        Building the program, staging and releasing the graphs are spans
+        (``fused.program``, ``fused.stage``, ``fused.close``), as each
+        piece's eager run, capture and replay are.
         """
         if not self.supports_fused:
             raise ValueError(
@@ -1445,14 +1462,16 @@ class LMCohortTrainer:
         t0 = time.perf_counter()
         if self._begin(rounds):
             return self._finished_resume(rounds, on_round, verbose, t0)
-        program = self.engine.program(rounds, kind=self.mix_impl)
-        evals = set(DecentralizedTrainer._eval_rounds(rounds, eval_every))
+        with span("fused.program"):
+            program = self.engine.program(rounds, kind=self.mix_impl)
+        evals = self._evals(rounds, eval_every)
         cpts = self._ckpt_rounds(rounds, ckpt_every)
-        staged = _LMFusedRounds(self, program)
+        with span("fused.stage"):
+            staged = _LMFusedRounds(self, program)
         history: list[dict] = []
         prev = self.start_round - 1
         try:
-            for end in sorted(evals | cpts):
+            for end in sorted(evals | cpts | {rounds - 1}):
                 if end < self.start_round:
                     continue
                 start, prev = prev + 1, end
@@ -1471,7 +1490,8 @@ class LMCohortTrainer:
                 if end in cpts:
                     self.save(ckpt_path, step=end)
         finally:
-            staged.close()
+            with span("fused.close"):
+                staged.close()
         return history
 
 
@@ -1481,7 +1501,8 @@ class _LMFusedRounds:
     Static buffers: the trainer's params, optimizer state and compression
     reference (updated in place), the round's token batch ``toks``/``labels``
     and the round ``r`` (an int64 0-dim tensor), both refilled before each
-    round, and ``loss``, the round's mean loss. The schedule's LR is
+    round, and the round's per-node losses (the trainer's ``node_losses``)
+    and ``loss``, their mean. The schedule's LR is
     computed from ``r`` on the device. On a faulted program the pieces also
     hold the pre-round snapshots and the straggler ring, and read the
     round's alive and keep rows through ``r``.
@@ -1506,6 +1527,8 @@ class _LMFusedRounds:
         self.labels = torch.zeros(shape, dtype=torch.int32, device=dev)
         self.r = torch.zeros((), dtype=torch.int64, device=dev)
         self._loss = torch.zeros((), dtype=torch.float32, device=dev)
+        trainer.node_losses = self._losses = torch.zeros(trainer.num_nodes, dtype=torch.float32,
+                                                         device=dev)
         self.hist = None
         self.p_in = self.o_in = None
         if program.faulted:
@@ -1529,8 +1552,9 @@ class _LMFusedRounds:
             for d, s in zip(self.p_in + self.o_in,
                             tree_leaves(tr.params) + tree_leaves(tr.opt_state)):
                 d.copy_(s)
-        self._loss.copy_(tr._local_step(tr.params, tr.opt_state, self.toks, self.labels,
-                                        tr._sched(self.r)).mean())
+        self._losses.copy_(tr._local_step(tr.params, tr.opt_state, self.toks, self.labels,
+                                          tr._sched(self.r)))
+        self._loss.copy_(self._losses.mean())
         if self.program.faulted:
             tr._freeze_dead(tr.params, tr.opt_state, self.program.alive_at(self.r),
                             self.p_in, self.o_in)

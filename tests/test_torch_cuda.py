@@ -1375,3 +1375,123 @@ def test_auto_int8_pipeline_matches_the_microgroup_control_on_the_card(cuda):
     for k in ("k_scale", "v_scale"):
         torch.testing.assert_close(got[k], torch.cat([p[k] for p in parts], dim=1),
                                    rtol=1e-5, atol=0)
+
+
+# -- the selective scan kernel (Jamba2-3B's Mamba mixers) ---------------------------
+
+from repro_torch.kernels import selective_scan as ssk  # noqa: E402
+from repro_torch.models import mamba as mamba_mod  # noqa: E402
+
+
+def _scan_inputs(b, s, di, n, dev, seed, with_h0):
+    """The scan's inputs at a Mamba mixer's scales: dt before a bias of -4
+    (small steps, as ``init_mamba`` starts them), A = -(1 .. n)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    a = -torch.arange(1, n + 1, dtype=torch.float32, device=dev).expand(di, n).contiguous()
+    return [rnd(b, s, di), rnd(b, s, di, scale=0.5), rnd(di, scale=0.1) - 4.0,
+            a * (1 + rnd(di, n, scale=0.05)), rnd(b, s, n), rnd(b, s, n), 1 + rnd(di, scale=0.1),
+            rnd(b, di, n) if with_h0 else None]
+
+
+def _scan_grads(fn, ins, gy, gh):
+    leaves = [x.clone().requires_grad_(True) if x is not None else None for x in ins]
+    y, h = fn(*leaves)
+    ((y * gy).sum() + (h * gh).sum()).backward()
+    return y.detach(), h.detach(), [x.grad for x in leaves if x is not None]
+
+
+def _scale_close(got, want, tol):
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=0, atol=tol * max(scale, 1e-30))
+
+
+@pytest.mark.parametrize("b,s,di,n,with_h0", [
+    (1, 4096, 5120, 16, False),  # Jamba2-3B's mixer at the benchmark cell's 4096 tokens
+    (2, 29, 512, 8, True),       # the reduced configs' d_state 8, with a starting state
+    (3, 77, 100, 16, False),     # channels and steps off the block and chunk sizes
+    (1, 1, 64, 16, True),        # one step through the chunked path
+    (2, 33, 40, 5, False),       # an odd d_state
+])
+def test_selective_scan_kernel_matches_the_plain_version(cuda, b, s, di, n, with_h0):
+    """y, the last state and every input's gradient against the plain version
+    (the log-depth chunked scan, f32) on the card: within 2e-5 of each
+    tensor's largest entry for y and the state, 1e-4 for the gradients (the
+    kernel is sequential in time and sums over channels and steps in
+    another order). One forward and one backward launch."""
+    ins = _scan_inputs(b, s, di, n, cuda, seed=s + di, with_h0=with_h0)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    gy = torch.randn(b, s, di, generator=gen, device=cuda)
+    gh = torch.randn(b, di, n, generator=gen, device=cuda)
+    reset_launches()
+    y, h, grads = _scan_grads(lambda *x: ssk.selective_scan(*x[:7], x[7]), ins, gy, gh)
+    torch.cuda.synchronize()
+    assert LAUNCHES["selective_scan"] == 1 and LAUNCHES["selective_scan_bwd"] == 1
+    assert sum(LAUNCHES.values()) == 2
+    y0, h0, grads0 = _scan_grads(
+        lambda *x: mamba_mod.selective_scan_ref(*x[:7], x[7], chunk=256), ins, gy, gh)
+    _scale_close(y, y0, 2e-5)
+    _scale_close(h, h0, 2e-5)
+    assert len(grads) == len(grads0) == 7 + with_h0
+    for g, g0 in zip(grads, grads0):
+        _scale_close(g, g0, 1e-4)
+
+
+def test_selective_scan_replays_in_a_cuda_graph_bit_for_bit(cuda):
+    """Forward and backward captured in one graph: every replay gives the
+    eager run's bits (the sums over channels and steps are in a fixed
+    order), and each replay counts its two launches."""
+    ins = _scan_inputs(1, 300, 512, 16, cuda, seed=5, with_h0=False)
+    leaves = [x.clone().requires_grad_(True) for x in ins[:7]]
+    gy = torch.randn(1, 300, 512, device=cuda)
+
+    def step():
+        y, _ = ssk.selective_scan(*leaves)
+        return torch.autograd.grad((y * gy).sum(), leaves)
+
+    eager = [g.clone() for g in step()]
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        step()
+    torch.cuda.current_stream().wait_stream(stream)
+    out = []
+    staged = graphs_mod.Staged(lambda: out.append(step()), cuda, stream=stream)
+    assert staged.launches == {"selective_scan": 1, "selective_scan_bwd": 1}
+    reset_launches()
+    for _ in range(2):
+        staged()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(out[0], eager))
+    assert LAUNCHES["selective_scan"] == 2 and LAUNCHES["selective_scan_bwd"] == 2
+
+
+def test_selective_scan_refuses_a_wide_state_on_the_card(cuda):
+    ins = _scan_inputs(1, 8, 16, 32, cuda, seed=0, with_h0=False)
+    with pytest.raises(ValueError, match="d_state up to 16"):
+        ssk.selective_scan(*ins[:7])
+
+
+def test_jamba2_cohort_on_the_card_runs_its_scans_through_the_kernel(cuda):
+    """The reduced Jamba2-3B cohort (3 members on a star, ``sparse``): the
+    fused rounds equal the loop's to 1e-6, and each round launches the
+    forward scan twice a Mamba layer a member (the forward, then the
+    recompute under the members' remat) and the backward once; each
+    recorded round's cohort evaluation runs the forward once more."""
+    cfg = cfgbase.get("jamba2-3b").reduced()
+    kw = dict(nodes=3, batch=1, seq=64, lr=0.5, backend="sparse", compress=None, device=cuda)
+    loop = trainer_mod.LMCohortTrainer("star:n=3", cfg, **kw)
+    fused = trainer_mod.LMCohortTrainer("star:n=3", cfg, **kw)
+    h1 = loop.run(3, eval_every=3)
+    reset_launches()
+    h2 = fused.run_fused(3, eval_every=3)
+    mamba = sum(sp.mixer == "mamba" for sp in cfg.pattern) * cfg.num_groups
+    evals = len(h2)
+    assert LAUNCHES["selective_scan"] == 3 * (3 * 2 * mamba) + evals * 3 * mamba
+    assert LAUNCHES["selective_scan_bwd"] == 3 * 3 * mamba
+    for a, b in zip(tree_leaves(loop.params), tree_leaves(fused.params)):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+    assert abs(h1[-1]["loss"] - h2[-1]["loss"]) <= 1e-6
